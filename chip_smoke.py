@@ -1,0 +1,540 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (`maveric_slam_tpu_torch`) on one
+NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure raises and exits non-zero:
+  1. build the CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc, all
+     sources at once) and print the build time and ptxas's resource lines;
+  2. hold each kernel against its plain PyTorch version on the card, on
+     inputs taken from the tracking step at 192x640 (detector C=1920; match
+     N=100 against C=1920; nullspace n=9 at B=256/64/3 and n=4 at B=100;
+     svd3 at B=256/64/1 plus degenerate matrices), at the bars of ROADMAP.md;
+  3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
+     every launch count set to 0 just before and read just after; check the
+     counts, the step statistics and the poses against the exact ground truth;
+  4. run the same frames and RANSAC noise through the port on the CPU and
+     print the per-step differences from the card;
+  5. time each kernel, its plain version and a one-call PyTorch yardstick
+     where there is one (never used by the port) with CUDA events, and each
+     layer of the step alone with the host clock;
+  6. then, under torch.profiler, each kernel's own device time, each
+     layer's device-busy time and launches, and the step's device-busy
+     share (last, so that no untraced timing runs after a profiler).
+The last three lines are the card's name and power limit, a JSON object of
+per-kernel numbers, and `{"ok": true, "device": {...}}`.
+
+It needs a card (torch.cuda.is_available()) and the checkout beside it; it
+imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+H, W, FOCAL = 192, 640, 800.0  # the 96x320 camera of tests/test_synthetic_accuracy.py, doubled
+# Orbit frames per turn: twice tests/test_synthetic_accuracy.py's 96, so that
+# a step moves the image as many 8-px cells as there (~3.3), inside the
+# matcher's 4-cell window; 96 would move it ~6.5 cells at this focal length.
+ORBIT_N = 192
+N_FRAMES = 11  # 10 tracking steps
+WARMUP_STEPS = 2  # steps left out of the median step time
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
+F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
+INT8_OPS_PER_S = 1979e12  # int8, dense
+
+
+def _log(*a):
+    print(*a, flush=True)
+
+
+def _require(ok, what):
+    """A check of this run's results; raises (also under python -O)."""
+    if not ok:
+        raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+def _config():
+    from maveric_slam_tpu_torch.config import DEFAULT_CONFIG, CameraConfig
+
+    cam = CameraConfig(fx=FOCAL, fy=FOCAL, cx=W / 2, cy=H / 2, width=W, height=H)
+    return dataclasses.replace(
+        DEFAULT_CONFIG,
+        camera=cam,
+        frontend=dataclasses.replace(DEFAULT_CONFIG.frontend, height=H, width=W),
+        ransac=dataclasses.replace(DEFAULT_CONFIG.ransac, inlier_thresh=3.0 / FOCAL),
+    )
+
+
+def _rot_deg(R, R_ref):
+    c = (np.trace(R.T @ R_ref) - 1.0) / 2.0
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def _dir_deg(t, t_ref):
+    c = t @ t_ref / max(np.linalg.norm(t) * np.linalg.norm(t_ref), 1e-30)
+    return float(np.degrees(np.arccos(np.clip(c, -1.0, 1.0))))
+
+
+def phase_build():
+    from maveric_slam_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    so = _build.build()
+    _build.library()
+    _log(f"[build] {os.path.relpath(so, ROOT)} in {time.perf_counter() - t0:.2f} s "
+         f"(nvcc {_build.build_seconds})")
+    for line in _build.build_log.splitlines():
+        if "Compiling entry function" in line or "registers" in line or "spill" in line:
+            _log("[build]   " + line.strip())
+
+
+def kernel_inputs(dev, frames, noise, cfg):
+    """The four kernels' inputs as the tracking step forms them, from frames
+    0 and 1: detector logits, match queries and cells, the 8-point normal
+    matrices of the minimal, LO and refit stages, and their nullspaces as
+    3x3 matrices for svd3."""
+    from maveric_slam_tpu_torch.geometry import epipolar
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import matching, softmax_topn as st
+    from maveric_slam_tpu_torch.ops.kernels import detector, nullspace
+
+    fc, mc = cfg.frontend, cfg.matcher
+    params = sp.load_params(device=dev)
+    imgs = torch.from_numpy(np.stack(frames[:2])).to(dev)
+    semi, desc, scales = sp.superpoint_int8(params, imgs)
+    semi = semi.reshape(2, -1, 65)
+    desc = desc.reshape(2, -1, 256)
+    det = [detector.detector_postproc_plain(semi[k], scales["semi_scale"]) for k in (0, 1)]
+    grid1 = st.SoftmaxGrid(det[1][0].reshape(fc.grid_h, fc.grid_w),
+                           det[1][1].reshape(fc.grid_h, fc.grid_w))
+    top = st.top_n_select(grid1, n=fc.top_n, valid_thresh=fc.valid_prob_thresh,
+                          mode=fc.top_n_mode)
+    m = matching.windowed_match(
+        desc[0], det[0][0], det[0][1], desc[1], top.cells, top.indices, top.mask,
+        grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
+        radius=mc.window_radius, match_threshold=mc.match_threshold,
+        min_prob=mc.min_prob, xy0_cells=det[0][2], xy1_cells=det[1][2])
+    K = torch.from_numpy(cfg.working_camera.K).to(dev)
+    p1, p2 = epipolar.normalize_points(m.xy0, K), epipolar.normalize_points(m.xy1, K)
+    logits = torch.where(m.mask, 0.0, -torch.inf)
+    gmin, glo = (g.to(dev) for g in noise)
+
+    def normal(idx=None, w=None):
+        a = epipolar.eight_point_design(p1 if idx is None else p1[idx],
+                                        p2 if idx is None else p2[idx])
+        a = a if w is None else a * w[..., None]
+        return a.transpose(-1, -2) @ a
+
+    ata_min = normal(st.top_k(logits + gmin, 8)[1])  # (256, 9, 9)
+    ata_lo = normal(st.top_k(logits + glo, 16)[1])  # (64, 9, 9)
+    w = m.mask[None] / torch.tensor([[1.0], [2.0], [4.0]], device=dev)
+    ata_refit = normal(w=w.to(torch.float32))  # (3, 9, 9)
+    a4 = torch.from_numpy(np.random.default_rng(4).normal(size=(100, 4, 4)).astype(np.float32))
+    ata4 = (a4 @ a4.transpose(-1, -2)).to(dev)  # (100, 4, 4), the DLT size
+    E = [nullspace.nullspace_plain(a).reshape(-1, 3, 3) for a in (ata_min, ata_lo, ata_refit)]
+    degenerate = torch.zeros(4, 3, 3)
+    degenerate[0, 0, 1], degenerate[0, 1, 0] = 1.0, -1.0
+    degenerate[1] = torch.diag(torch.tensor([1.0, 2.0, -3.0]))
+    degenerate[2] = torch.outer(torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.5, -1.0, 2.0]))
+    return {
+        "detector": (semi[1].contiguous(), scales["semi_scale"]),
+        "match": (desc[1][top.cells.long()], desc[0], det[0][0], det[0][1], top.cells),
+        "match_kw": dict(grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
+                         radius=mc.window_radius, min_prob=mc.min_prob),
+        "nullspace": [ata_min, ata_lo, ata_refit, ata4],
+        "svd3": [E[0], E[1], E[2][:1], degenerate.to(dev)],
+    }
+
+
+def phase_kernels(inp):
+    """Each kernel against its plain version on the same card inputs."""
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+
+    errs = {}
+    p, i, xy = detector.detector_postproc(*inp["detector"])
+    pp, ip, xyp = detector.detector_postproc_plain(*inp["detector"])
+    v = ip != 64
+    _require(torch.equal(i, ip), "detector: argmax differs")
+    torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
+    errs["detector_postproc"] = max(float((p - pp).abs().max()), float((xy[v] - xyp[v]).abs().max()))
+    _log(f"[kernels] detector C={p.shape[0]}: argmax equal, {int(v.sum())} keypoint cells, "
+         f"max |dprob| {float((p - pp).abs().max()):.3g}, max |dxy| {float((xy[v] - xyp[v]).abs().max()):.3g}")
+
+    s, c = match.windowed_match(*inp["match"], **inp["match_kw"])
+    sp_, cp = match.windowed_match_plain(*inp["match"], **inp["match_kw"])
+    _require(torch.equal(c, cp), "match: best cells differ")
+    torch.testing.assert_close(s, sp_, rtol=1e-5, atol=0)
+    errs["windowed_match"] = float((s - sp_).abs().max())
+    _log(f"[kernels] match N={s.shape[0]} C={inp['match'][1].shape[0]}: cells equal, "
+         f"{int((sp_ > 0.64).sum())} above 0.8^2, max |dscore| {errs['windowed_match']:.3g}")
+
+    errs["nullspace_inverse_iteration"] = 0.0
+    for a in inp["nullspace"]:
+        got, ref = nullspace.nullspace_inverse_iteration(a), nullspace.nullspace_plain(a)
+        d = (got * torch.sign(torch.sum(ref * got, -1, keepdim=True)) - ref).abs().max()
+        _require(float(d) <= 1e-3, f"nullspace {tuple(a.shape)}: {float(d)}")
+        errs["nullspace_inverse_iteration"] = max(errs["nullspace_inverse_iteration"], float(d))
+        _log(f"[kernels] nullspace {tuple(a.shape)}: sign-aligned max |dx| {float(d):.3g} (bar 1e-3)")
+
+    errs["svd3"] = 0.0
+    for a in inp["svd3"]:
+        U, s3, V = svd3.svd3(a)
+        _, s3p, _ = svd3.svd3_plain(a)
+        m = max(1.0, float(a.abs().max()))
+        ds = float((s3 - s3p).abs().max())
+        recon = float((U @ torch.diag_embed(s3) @ V.transpose(-1, -2) - a).abs().max())
+        ddet = max(float((torch.linalg.det(U) - 1).abs().max()),
+                   float((torch.linalg.det(V) - 1).abs().max()))
+        _require(ds <= 2e-4 * m and recon <= 1e-3 * m and ddet <= 1e-3, (tuple(a.shape), ds, recon, ddet))
+        errs["svd3"] = max(errs["svd3"], ds)
+        _log(f"[kernels] svd3 {tuple(a.shape)}: max |ds| {ds:.3g}, recon {recon:.3g}, "
+             f"|det-1| {ddet:.3g} (bars 2e-4, 1e-3, 1e-3 x max|A|={m:.3g})")
+    torch.cuda.synchronize()
+    return errs
+
+
+def track(dev, frames, noises, cfg, seed=0):
+    """The main path: `Tracker` over the frames on `dev`; returns the
+    per-step results (host copies) and step times."""
+    from maveric_slam_tpu_torch.frontend.tracker import Tracker
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    tr = Tracker(sp.load_params(device=dev), cfg, seed=seed, device=dev)
+    tr.process(frames[0])
+    steps, times = [], []
+    for f, (gmin, glo) in zip(frames[1:], noises):
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step = tr.process(f, gmin.to(dev), glo.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        steps.append({"R": step.R.cpu().numpy(), "t": step.t.cpu().numpy(), **tr.stats[-1]})
+    return steps, times
+
+
+def check_poses(steps, gt_R, gt_t, label):
+    rot = [_rot_deg(s["R"], R) for s, R in zip(steps, gt_R)]
+    tdir = [_dir_deg(s["t"], t) for s, t in zip(steps, gt_t)]
+    for k, s in enumerate(steps):
+        _log(f"[{label}] step {k}: matches {s['matches']} inliers {s['inliers']} "
+             f"valid {s['valid']} rot err {rot[k]:.3f} deg t-dir err {tdir[k]:.2f} deg")
+    # A broken pipeline lands far from the exact ground truth: rotation
+    # errors of degrees and translation directions at random. The port at
+    # 96x320 (96-frame orbit) on the CPU measured <= 1.1 deg and a mean t-dir
+    # of <= 13 deg.
+    _require(sum(s["valid"] and s["matches"] >= 8 for s in steps) >= 8,
+             f"{label}: fewer than 8 valid steps with >= 8 matches")
+    _require(max(rot) < 2.0 and float(np.mean(tdir)) < 25.0, f"{label}: pose errors {rot} {tdir}")
+
+
+def phase_profile(frames, noises, cfg, steps=3):
+    """Where a tracking step's time goes on the card: torch.profiler over
+    `steps` steps; prints the device-busy share of the wall time and the
+    kernels with the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maveric_slam_tpu_torch.frontend.tracker import Tracker
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    cuda = torch.device("cuda")
+    tr = Tracker(sp.load_params(device=cuda), cfg, device=cuda)
+    tr.process(frames[0])
+    tr.process(frames[1], *(g.to(cuda) for g in noises[0]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for f, (gmin, glo) in zip(frames[2:2 + steps], noises[1:1 + steps]):
+            tr.process(f, gmin.to(cuda), glo.to(cuda))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    _log(f"[profile] {steps} steps: wall {wall_ms / steps:.3f} ms/step, device busy "
+         f"{busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
+         f"{len(kern) / steps:.0f} kernels/step")
+    by_name = {}
+    for e in kern:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    for name, (n, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]:
+        _log(f"[profile]   {t / steps:8.3f} ms/step {n / steps:6.1f}x  {name[:100]}")
+
+
+def _kernel_events(fn, iters):
+    """(device-busy ms, kernel launches) per call of `fn`, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / iters, len(kern) / iters
+
+
+def step_layers(frames, noises, cfg):
+    """Each layer of a tracking step as a call on the card, on frames 0 and
+    1, in step order: [(name, fn)]."""
+    from maveric_slam_tpu_torch.frontend import extractor
+    from maveric_slam_tpu_torch.geometry import epipolar, pnp, ransac
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import matching
+
+    cuda = torch.device("cuda")
+    fc, mc, rc = cfg.frontend, cfg.matcher, cfg.ransac
+    params = sp.load_params(device=cuda)
+    img0, img1 = (torch.from_numpy(f).to(cuda) for f in frames[:2])
+    f0 = extractor.extract_quantized(params, img0, cfg)
+    f1 = extractor.extract_quantized(params, img1, cfg)
+    n = fc.num_cells
+    K = torch.from_numpy(cfg.working_camera.K).to(cuda)
+    gmin, glo = (g.to(cuda) for g in noises[0])
+
+    def match():
+        return matching.windowed_match(
+            f0.desc_q.reshape(n, 256), f0.probs.reshape(n), f0.indices.reshape(n),
+            f1.desc_q.reshape(n, 256), f1.top.cells, f1.top.indices, f1.top.mask,
+            grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift, radius=mc.window_radius,
+            match_threshold=mc.match_threshold, min_prob=mc.min_prob,
+            xy0_cells=f0.xy.reshape(n, 2), xy1_cells=f1.xy.reshape(n, 2))
+
+    m = match()
+    p1, p2 = epipolar.normalize_points(m.xy0, K), epipolar.normalize_points(m.xy1, K)
+
+    def rans():
+        return ransac.ransac_essential(p1, p2, m.mask, inlier_thresh=rc.inlier_thresh,
+                                       num_hypotheses=rc.num_hypotheses, gumbel_min=gmin,
+                                       gumbel_lo=glo)
+
+    res = rans()
+    X = epipolar.triangulate(res.R, res.t, p1, p2)
+    return [
+        ("superpoint_int8", lambda: sp.superpoint_int8(params, img1[None])),
+        ("extract_quantized", lambda: extractor.extract_quantized(params, img1, cfg)),
+        ("windowed_match", match),
+        ("ransac_essential", rans),
+        ("triangulate", lambda: epipolar.triangulate(res.R, res.t, p1, p2)),
+        ("refine_pose", lambda: pnp.refine_pose(K, res.R, res.t, X, m.xy1, res.inliers,
+                                                huber_delta=cfg.ba.huber_delta,
+                                                damping=cfg.ba.lm_damping)),
+    ]
+
+
+def phase_layers(layers, reps=5):
+    """Wall time per call of each layer alone (host clock around
+    synchronised calls)."""
+    for name, fn in layers:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        _log(f"[layers] {name}: wall {(time.perf_counter() - t0) / reps * 1e3:.3f} ms/call")
+
+
+def _event_ms(fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def _device_ms(fn, names, iters=50):
+    """Mean device time per call of the CUDA kernels whose names contain one
+    of `names`, from torch.profiler; None if it records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for ev in prof.key_averages():
+        if any(n in ev.key for n in names):
+            total += ev.device_time_total
+    return total / iters / 1e3 if total > 0 else None
+
+
+def _nullspace_ops(n, iters=10):
+    chol = sum(2 * j + 1 for i in range(n) for j in range(i + 1)) + n
+    solve = 2 * sum(2 * i + 1 for i in range(n))
+    return chol + iters * (solve + 2 * n + 1 + n)
+
+
+SVD3_OPS = 1600  # f32 operations a matrix: A^T A, 18 Jacobi rotations, B = AV, sort, U
+
+
+def phase_timing(inp, launches, errs):
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+
+    semi, scale = inp["detector"]
+    c = semi.shape[0]
+    q, d0, pr0, ix0, cells = inp["match"]
+    kw = inp["match_kw"]
+    n = q.shape[0]
+    r = kw["radius"]
+    rows = cells.long() // kw["grid_w"] + kw["shift"][1]
+    cols = cells.long() % kw["grid_w"] + kw["shift"][0]
+    win_r = (torch.clamp(rows + r, max=kw["grid_h"] - 1) - torch.clamp(rows - r, min=0) + 1).clamp(min=0)
+    win_c = (torch.clamp(cols + r, max=kw["grid_w"] - 1) - torch.clamp(cols - r, min=0) + 1).clamp(min=0)
+    pairs = int((win_r * win_c).sum())  # (query, window cell) pairs this run's queries visit
+    ata = inp["nullspace"][0]
+    E = inp["svd3"][0]
+    b9, b3 = ata.shape[0], E.shape[0]
+    spec = [
+        dict(name="detector_postproc", src="detector.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:92",
+             kern=lambda: detector.detector_postproc(semi, scale),
+             plain=lambda: detector.detector_postproc_plain(semi, scale), lib=None,
+             names=("detector_kernel",), bytes=c * 65 + 4 + c * 16,
+             ops=c * (65 * 3 * 4 + 65 + 64 + 9 * 5 + 6), rate=F32_OPS_PER_S,
+             shape=f"C={c}"),
+        dict(name="windowed_match", src="match.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:169",
+             kern=lambda: match.windowed_match(q, d0, pr0, ix0, cells, **kw),
+             plain=lambda: match.windowed_match_plain(q, d0, pr0, ix0, cells, **kw), lib=None,
+             names=("match_kernel",), bytes=n * 256 + c * 256 + c * 8 + n * 4 + n * 8,
+             ops=2 * 256 * (pairs + n + c), rate=INT8_OPS_PER_S,
+             shape=f"N={n} C={c} window pairs={pairs}"),
+        dict(name="nullspace_inverse_iteration", src="nullspace.cu",
+             replaces="maveric_slam_tpu/ops/pallas_kernels.py:292",
+             kern=lambda: nullspace.nullspace_inverse_iteration(ata),
+             plain=lambda: nullspace.nullspace_plain(ata),
+             lib=lambda: torch.linalg.eigh(ata),
+             names=("nullspace_kernel",), bytes=b9 * (81 + 9) * 4,
+             ops=b9 * _nullspace_ops(9), rate=F32_OPS_PER_S, shape=f"B={b9} n=9"),
+        dict(name="svd3", src="svd3.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:462",
+             kern=lambda: svd3.svd3(E), plain=lambda: svd3.svd3_plain(E),
+             lib=lambda: torch.linalg.svd(E),
+             names=("svd3_kernel",), bytes=b3 * (9 + 9 + 3 + 9) * 4,
+             ops=b3 * SVD3_OPS, rate=F32_OPS_PER_S, shape=f"B={b3}"),
+    ]
+    out = []
+    for k in spec:
+        t_bytes, t_ops = k["bytes"] / HBM_BYTES_PER_S * 1e3, k["ops"] / k["rate"] * 1e3
+        # plain, kernel, kernel, plain: the pairs are compared within one run
+        plain1 = _event_ms(k["plain"], 50)
+        kern1 = _event_ms(k["kern"], 500)
+        kern2 = _event_ms(k["kern"], 500)
+        plain2 = _event_ms(k["plain"], 50)
+        lib = _event_ms(k["lib"], 200) if k["lib"] else None
+        row = {
+            "name": k["name"], "route": "cuda",
+            "source": f"maveric_slam_tpu_torch/csrc/{k['src']}", "replaces": k["replaces"],
+            "launches": launches[k["name"]], "max_abs_err": errs[k["name"]],
+            "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
+            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": lib, "device_ms": None, "shape": k["shape"],
+        }
+        _log(f"[timing] {k['name']} ({k['shape']}): call {kern1:.4f}/{kern2:.4f} ms, "
+             f"plain {plain1:.4f}/{plain2:.4f} ms, "
+             f"library {lib if lib is None else f'{lib:.4f}'} ms, bound {row['bound_ms']:.2e} ms "
+             f"({row['bound_by']}: {k['bytes']} B, {k['ops']} ops)")
+        out.append(row)
+    for a in inp["nullspace"][1:] + inp["svd3"][1:3]:
+        fn = (lambda a=a: svd3.svd3(a)) if a.shape[-1] == 3 else (lambda a=a: nullspace.nullspace_inverse_iteration(a))
+        _log(f"[timing] {'svd3' if a.shape[-1] == 3 else 'nullspace'} {tuple(a.shape)}: "
+             f"call {_event_ms(fn, 500):.4f} ms")
+    return out, spec
+
+
+def phase_traced(rows, spec, layers, frames, noises, cfg):
+    """The profiler's numbers, taken after every untraced timing: each
+    kernel's own device time, each layer's device-busy time and launches per
+    call, and the whole step's device-busy share and heaviest kernels."""
+    for row, k in zip(rows, spec):
+        row["device_ms"] = _device_ms(k["kern"], k["names"])
+        _log(f"[traced] {row['name']}: device {row['device_ms']} ms/launch")
+    for name, fn in layers:
+        busy, count = _kernel_events(fn, 5)
+        _log(f"[traced] {name}: device busy {busy:.3f} ms/call, {count:.0f} kernels/call")
+    phase_profile(frames, noises, cfg)
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
+        sys.exit(2)
+    sys.path.insert(0, ROOT)
+    import maveric_slam_tpu_torch  # noqa: F401  (sets TF32 off)
+    from maveric_slam_tpu_torch.data import synthetic
+    from maveric_slam_tpu_torch.geometry import ransac
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.utils.trajectory import relative_from_poses
+
+    cuda = torch.device("cuda")
+    _log(f"[env] torch {torch.__version__} cuda {torch.version.cuda} device "
+         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    t_all = time.perf_counter()
+    phase_build()
+
+    cfg = _config()
+    poses = synthetic.orbit_poses(ORBIT_N)[:N_FRAMES]
+    frames = [synthetic.render_box_room(cfg.working_camera.K, p, H, W) for p in poses]
+    gt_R, gt_t = relative_from_poses(poses)
+    gen = torch.Generator().manual_seed(0)
+    m, k = cfg.frontend.top_n, cfg.ransac.num_hypotheses
+    noises = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
+              for _ in range(N_FRAMES - 1)]
+
+    inp = kernel_inputs(cuda, frames, noises[0], cfg)
+    errs = phase_kernels(inp)
+
+    kernels.reset_launch_counts()
+    steps, times = track(cuda, frames, noises, cfg)
+    launches = kernels.launch_counts()
+    _log(f"[track] {H}x{W}, {len(steps)} steps, step time median "
+         f"{np.median(times[WARMUP_STEPS:]) * 1e3:.3f} ms over steps {WARMUP_STEPS}.., all (ms): "
+         + " ".join(f"{t * 1e3:.3f}" for t in times))
+    _log(f"[track] kernels {json.dumps(launches)}")
+    n_steps = len(steps)
+    expected = {"detector_postproc": N_FRAMES, "windowed_match": n_steps,
+                "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps}
+    _require(launches == expected, f"launches {launches}, expected {expected}")
+    check_poses(steps, gt_R, gt_t, "track")
+
+    cpu_steps, _ = track(torch.device("cpu"), frames, noises, cfg)
+    check_poses(cpu_steps, gt_R, gt_t, "cpu")
+    for j, (g, c) in enumerate(zip(steps, cpu_steps)):
+        _log(f"[cpu-vs-card] step {j}: matches {c['matches']}/{g['matches']} inliers "
+             f"{c['inliers']}/{g['inliers']} max |dR| {np.abs(g['R'] - c['R']).max():.3g} "
+             f"max |dt| {np.abs(g['t'] - c['t']).max():.3g} rot diff {_rot_deg(g['R'], c['R']):.4f} deg")
+    _require(max(_rot_deg(g["R"], c["R"]) for g, c in zip(steps, cpu_steps)) < 1.0,
+             "card and CPU rotations differ by 1 deg or more")
+
+    rows, spec = phase_timing(inp, launches, errs)
+    layers = step_layers(frames, noises, cfg)
+    phase_layers(layers)
+    phase_traced(rows, spec, layers, frames, noises, cfg)
+    _log(f"[done] {time.perf_counter() - t_all:.1f} s")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else f"nvidia-smi: {smi.stderr.strip()}")
+    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                              "count": torch.cuda.device_count()}}), flush=True)
+
+
+if __name__ == "__main__":
+    main()

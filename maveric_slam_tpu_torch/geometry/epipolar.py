@@ -1,0 +1,123 @@
+"""Essential-matrix estimation and pose recovery, batched (port of the parts
+of maveric_slam_tpu/geometry/epipolar.py the tracking step uses).
+
+Points are in normalized camera coordinates (K^-1 applied); E satisfies
+p2^T E p1 = 0; the recovered (R, t) maps cam1 points to cam2: p2 ~ R p1 + t.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from ..ops.linalg import smallest_eigvec_inverse_iteration
+from ..ops.svd3 import svd3
+
+_W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
+
+
+def normalize_points(points: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Pixel -> normalized camera coordinates."""
+    return torch.stack(
+        [(points[..., 0] - K[0, 2]) / K[0, 0], (points[..., 1] - K[1, 2]) / K[1, 1]], dim=-1
+    )
+
+
+def eight_point_design(p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Design matrix rows (..., M, 9) for p2^T E p1 = 0."""
+    x1, y1 = p1[..., 0], p1[..., 1]
+    x2, y2 = p2[..., 0], p2[..., 1]
+    one = torch.ones_like(x1)
+    return torch.stack([x2 * x1, x2 * y1, x2, y2 * x1, y2 * y1, y2, x1, y1, one], dim=-1)
+
+
+def _rank2_projection(U, s, V):
+    d = torch.zeros_like(s)
+    d[..., 0] = 1.0
+    d[..., 1] = 1.0
+    return U @ (d[..., :, None] * V.transpose(-1, -2))
+
+
+def estimate_essential(p1, p2, weights=None, project: bool = True,
+                       nullspace_iters: int = 10) -> torch.Tensor:
+    """Least-squares essential matrix (..., 3, 3) from M >= 8 correspondences
+    p1, p2 (..., M, 2), optionally weighted (weights broadcast against the
+    design matrix). project=False skips the essential-manifold projection and
+    is refused for minimal (M <= 8) samples, whose unprojected nullspace can
+    score a fake-perfect Sampson error on small-baseline data."""
+    if not project and p1.shape[-2] <= 8:
+        raise ValueError(
+            "estimate_essential(project=False) requires a non-minimal fit "
+            f"(got M={p1.shape[-2]} <= 8 correspondences); minimal-sample "
+            "hypotheses must be scored on the projected E"
+        )
+    A = eight_point_design(p1, p2)
+    if weights is not None:
+        A = A * weights[..., None]
+    AtA = A.transpose(-1, -2) @ A
+    e = smallest_eigvec_inverse_iteration(AtA, iterations=nullspace_iters)
+    E = e.reshape(e.shape[:-1] + (3, 3))
+    if not project:
+        return E
+    return _rank2_projection(*svd3(E))
+
+
+def sampson_distance(E: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> torch.Tensor:
+    """Squared first-order geometric (Sampson) distance (..., M)."""
+    ones = torch.ones_like(p1[..., :1])
+    x1 = torch.cat([p1, ones], dim=-1)
+    x2 = torch.cat([p2, ones], dim=-1)
+    Ex1 = x1 @ E.transpose(-1, -2)  # (..., M, 3): (E x1)_i
+    Etx2 = x2 @ E  # (..., M, 3): (E^T x2)_i
+    num = torch.sum(x2 * Ex1, dim=-1) ** 2
+    den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
+    return num / torch.clamp(den, min=1e-12)
+
+
+def triangulate(R, t, p1, p2) -> torch.Tensor:
+    """Closed-form ray-midpoint triangulation for P1 = [I|0], P2 = [R|t];
+    R (..., 3, 3), t (..., 3), p1/p2 (..., M, 2) -> X (..., M, 3) in cam 1."""
+    a = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
+    d2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
+    b = d2 @ R  # R^T [p2;1] per row
+    c2 = -(t[..., None, :] @ R)  # (..., 1, 3): -R^T t
+    aa = torch.sum(a * a, dim=-1)
+    bb = torch.sum(b * b, dim=-1)
+    ab = torch.sum(a * b, dim=-1)
+    ac = torch.sum(a * c2, dim=-1)
+    bc = torch.sum(b * c2, dim=-1)
+    den = aa * bb - ab * ab
+    den = torch.where(torch.abs(den) < 1e-12, 1e-12, den)
+    s = (ac * bb - bc * ab) / den
+    u = (ac * ab - bc * aa) / den
+    return 0.5 * (s[..., None] * a + c2 + u[..., None] * b)
+
+
+def project_and_decompose(E: torch.Tensor):
+    """One svd3 shared by the rank-2 projection and the pose decomposition:
+    (E_proj, R1, R2, t) with R1 = U W V^T, R2 = U W^T V^T, t = U[:, 2]."""
+    U, s, V = svd3(E)
+    Vt = V.transpose(-1, -2)
+    W = torch.tensor(_W, dtype=E.dtype, device=E.device)
+    return _rank2_projection(U, s, V), U @ W @ Vt, U @ W.T @ Vt, U[..., :, 2]
+
+
+def choose_pose_by_cheirality(R1, R2, t, p1, p2, weights=None
+                              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Pick among the 4 (R, +-t) candidates by positive-depth voting; ties go
+    to the first candidate."""
+    cands_R = torch.stack([R1, R1, R2, R2], dim=0)  # (4, ..., 3, 3)
+    cands_t = torch.stack([t, -t, t, -t], dim=0)
+    X = triangulate(cands_R, cands_t, p1, p2)  # (4, ..., M, 3)
+    z1 = X[..., 2]
+    z2 = (X @ cands_R.transpose(-1, -2))[..., 2] + cands_t[..., None, 2]
+    good = (z1 > 0) & (z2 > 0)
+    if weights is not None:
+        good = good & (weights > 0)
+    counts = torch.sum(good, dim=-1)  # (4, ...)
+    best = torch.argmax(counts, dim=0)
+    R = torch.take_along_dim(cands_R, best[None, ..., None, None], dim=0)[0]
+    t_best = torch.take_along_dim(cands_t, best[None, ..., None], dim=0)[0]
+    n_good = torch.take_along_dim(counts, best[None, ...], dim=0)[0]
+    return R, t_best, n_good

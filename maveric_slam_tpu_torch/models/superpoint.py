@@ -1,0 +1,173 @@
+"""int8 SuperPoint (port of the int8 path of maveric_slam_tpu/models/superpoint.py).
+
+The network is the reference's per-tensor qint8 graph (all zero points 0):
+int8 activations times int8 weights, summed, plus the int32-quantized bias,
+requantized with one f32 multiplier and round-half-even. Layout at the
+public functions is the JAX package's: images (N, H, W), grids NHWC.
+
+Exactness. As in the JAX package the int8 values are carried as f32: a
+product of two int8 values is exact in f32 and so is every partial sum
+below 2^24 (`int8_accumulator_maxima` audits that bound). A convolution is
+an im2col (`F.unfold`) followed by one f32 matrix product with TF32 off
+(set at package import), i.e. plain dot products, exact in that range. A
+cuDNN f32 convolution is NOT used: it may pick Winograd or FFT algorithms,
+which are not exact on integers. The CPU path runs the same code, so the
+CPU tests hold it bitwise against the JAX package.
+
+Only stage 1's layered form (`stem="off"`) exists in this port; the fused
+stem kernel is not ported yet.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ..ops.backend import resolve_device
+
+_ENCODER = ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b"]
+_HEADS = ["convPa", "convPb", "convDa", "convDb"]
+LAYERS = _ENCODER + _HEADS
+
+# The weights file shipped with the JAX package, read by path (not imported).
+DEFAULT_WEIGHTS = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "maveric_slam_tpu", "data", "superpoint_weights.npz",
+)
+
+Params = Dict[str, torch.Tensor]
+
+
+def _scalar(v, device) -> torch.Tensor:
+    return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
+
+
+def _layer_params(name: str, w_oihw: np.ndarray, bias, wscale, oscale, device) -> Params:
+    w = np.asarray(w_oihw, np.int8)
+    return {
+        f"{name}_w": torch.from_numpy(w.copy()).to(device),  # (O, I, KH, KW) int8
+        # f32 carrier of the int8 weight as an im2col matrix (O, I*KH*KW).
+        f"{name}_wq": torch.from_numpy(w.reshape(w.shape[0], -1).astype(np.float32)).to(device),
+        f"{name}_b": torch.from_numpy(np.asarray(bias, np.float32).copy()).to(device),
+        f"{name}_wscale": _scalar(wscale, device),
+        f"{name}_oscale": _scalar(oscale, device),
+    }
+
+
+def load_params(path: str | None = None, device=None) -> Params:
+    """Weights from the extracted npz (OIHW int8 weights, f32 biases and
+    per-tensor scales), on `device` (None: CUDA)."""
+    dev = resolve_device(device)
+    raw = np.load(path or DEFAULT_WEIGHTS)
+    params: Params = {"input_scale": _scalar(raw["input_scale"], dev)}
+    for name in LAYERS:
+        params.update(_layer_params(name, raw[f"{name}_w"], raw[f"{name}_b"],
+                                    raw[f"{name}_wscale"], raw[f"{name}_oscale"], dev))
+    return params
+
+
+def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
+    """The port's params from the JAX package's `load_params()` dict, its
+    arrays taken to numpy (HWIO int8 weights `{name}_w`, `{name}_b`,
+    `{name}_wscale`, `{name}_oscale`, `input_scale`)."""
+    dev = resolve_device(device)
+    params: Params = {"input_scale": _scalar(jax_params["input_scale"], dev)}
+    for name in LAYERS:
+        w_oihw = np.transpose(np.asarray(jax_params[f"{name}_w"]), (3, 2, 0, 1))
+        params.update(_layer_params(name, w_oihw, jax_params[f"{name}_b"],
+                                    jax_params[f"{name}_wscale"],
+                                    jax_params[f"{name}_oscale"], dev))
+    return params
+
+
+def _requant(acc, in_scale, w_scale, bias, out_scale, relu: bool):
+    """Exact-integer f32 accumulator (N, O, ...) -> qint8 values (as f32):
+    bias quantized at s_in*s_w, one multiplier M = s_in*s_w/s_out,
+    round-half-even (torch.round), clip to [0 or -128, 127]."""
+    bias_q = torch.round(bias / (in_scale * w_scale))
+    m = (in_scale * w_scale) / out_scale
+    shape = (-1,) + (1,) * (acc.ndim - 2)
+    q = torch.round((acc + bias_q.reshape(shape)) * m)
+    return torch.clamp(q, 0.0 if relu else -128.0, 127.0)
+
+
+def _conv_acc(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
+    """Integer-exact conv accumulator of NCHW f32-carried int8 `x`: 3x3 SAME
+    or 1x1, as im2col + one f32 matmul. Returns (N, O, H, W) f32."""
+    n, _, h, w = x.shape
+    wq = params[f"{name}_wq"]
+    k = params[f"{name}_w"].shape[-1]
+    cols = F.unfold(x, kernel_size=k, padding=k // 2) if k > 1 else x.reshape(n, x.shape[1], h * w)
+    return (wq @ cols).reshape(n, wq.shape[0], h, w)
+
+
+def _qconv(x, params, name, in_scale, relu):
+    acc = _conv_acc(x, params, name)
+    q = _requant(acc, in_scale, params[f"{name}_wscale"], params[f"{name}_b"],
+                 params[f"{name}_oscale"], relu)
+    return q, params[f"{name}_oscale"]
+
+
+def superpoint_int8(params: Params, images: torch.Tensor, stem: str = "off"):
+    """Quantized inference on (N, H, W) grayscale images in [0, 1].
+
+    Returns semi_q (N, H/8, W/8, 65) int8, desc_q (N, H/8, W/8, 256) int8
+    and {"semi_scale", "desc_scale"} () f32 tensors.
+    stem: only "off" (stage 1 as layered convs) exists in this port.
+    """
+    if stem != "off":
+        raise NotImplementedError(
+            f"stem={stem!r}: only the layered stage 1 (stem='off') is ported")
+    s = params["input_scale"]
+    x = torch.clamp(torch.round(images[:, None] / s), -128, 127)  # NCHW
+    x, sc = _qconv(x, params, "conv1a", s, True)
+    x, sc = _qconv(x, params, "conv1b", sc, True)
+    x = F.max_pool2d(x, 2)
+    x, sc = _qconv(x, params, "conv2a", sc, True)
+    x, sc = _qconv(x, params, "conv2b", sc, True)
+    x = F.max_pool2d(x, 2)
+    x, sc = _qconv(x, params, "conv3a", sc, True)
+    x, sc = _qconv(x, params, "conv3b", sc, True)
+    x = F.max_pool2d(x, 2)
+    x, sc = _qconv(x, params, "conv4a", sc, True)
+    x, sc = _qconv(x, params, "conv4b", sc, True)
+    pa, sca = _qconv(x, params, "convPa", sc, True)
+    semi_q, semi_scale = _qconv(pa, params, "convPb", sca, False)
+    da, scd = _qconv(x, params, "convDa", sc, True)
+    desc_q, desc_scale = _qconv(da, params, "convDb", scd, False)
+    return (
+        semi_q.permute(0, 2, 3, 1).to(torch.int8).contiguous(),
+        desc_q.permute(0, 2, 3, 1).to(torch.int8).contiguous(),
+        {"semi_scale": semi_scale, "desc_scale": desc_scale},
+    )
+
+
+def int8_accumulator_maxima(params: Params, images: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Per layer, max |integer accumulator + quantized bias| of the int8
+    graph. Each must stay below 2^24 for the f32-carried path to be exact."""
+    s = params["input_scale"]
+    x = torch.clamp(torch.round(images[:, None] / s), -128, 127)
+    maxima: Dict[str, torch.Tensor] = {}
+
+    def qconv(x, name, in_scale, relu):
+        acc = _conv_acc(x, params, name)
+        bias_q = torch.round(params[f"{name}_b"] / (in_scale * params[f"{name}_wscale"]))
+        maxima[name] = torch.amax(torch.abs(acc + bias_q.reshape(-1, 1, 1)))
+        q = _requant(acc, in_scale, params[f"{name}_wscale"], params[f"{name}_b"],
+                     params[f"{name}_oscale"], relu)
+        return q, params[f"{name}_oscale"]
+
+    sc = s
+    for name in _ENCODER:
+        x, sc = qconv(x, name, sc, True)
+        if name in ("conv1b", "conv2b", "conv3b"):
+            x = F.max_pool2d(x, 2)
+    pa, sca = qconv(x, "convPa", sc, True)
+    qconv(pa, "convPb", sca, False)
+    da, scd = qconv(x, "convDa", sc, True)
+    qconv(da, "convDb", scd, False)
+    return maxima

@@ -1,0 +1,143 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Every test here is marked `cuda` and skips without an NVIDIA GPU. The file
+imports neither JAX nor the JAX package, so it runs on a machine that has
+only PyTorch and the CUDA toolkit:
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py
+
+(`--noconftest`: tests/conftest.py pins JAX to the CPU and imports it.)
+The bars are those of ROADMAP.md "How parity is held".
+"""
+
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from maveric_slam_tpu_torch.data import synthetic
+from maveric_slam_tpu_torch.models import superpoint as sp
+from maveric_slam_tpu_torch.ops import softmax_topn as st
+from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+
+pytestmark = pytest.mark.cuda
+
+REFCACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "maveric_slam_tpu", "data", "_refcache",
+    "include_data_quantized_quantized_image0.h.npz",
+)
+
+
+@pytest.fixture(scope="module")
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (torch.cuda.is_available() is False)")
+    return torch.device("cuda")
+
+
+@pytest.fixture(scope="module")
+def image0():
+    """The golden int8 grids of image0 as (1920, 65) / (1920, 256) row-major
+    cells (the header's patch order is column-major: (wc, hc) transposed)."""
+    with np.load(REFCACHE) as d:
+        hc, wc = int(d["image0_feature_rows"]), int(d["image0_feature_cols"])
+        semi = d["image0_semi"].reshape(wc, hc, 65).transpose(1, 0, 2)
+        desc = d["image0_desc"].reshape(wc, hc, 256).transpose(1, 0, 2)
+        scale = np.float32(d["image0_semi_scale"])
+    return np.ascontiguousarray(semi.reshape(-1, 65)), np.ascontiguousarray(
+        desc.reshape(-1, 256)), scale
+
+
+def test_detector(image0, cuda):
+    semi, _, scale = image0
+    s = torch.from_numpy(semi).to(cuda)
+    sc = torch.tensor(scale, device=cuda)
+    p, i, xy = detector.detector_postproc(s, sc)
+    pp, ip, xyp = detector.detector_postproc_plain(s, sc)
+    torch.cuda.synchronize()
+    assert torch.equal(i, ip)
+    torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
+    v = ip != 64
+    torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("other", ["self", "noisy"])
+def test_match(image0, cuda, other):
+    semi, desc, scale = image0
+    probs, idx, _ = detector.detector_postproc_plain(
+        torch.from_numpy(semi), torch.tensor(scale))
+    grid = st.SoftmaxGrid(probs.reshape(24, 80), idx.reshape(24, 80))
+    top = st.top_n_select(grid, n=100, mode="prob")
+    q = desc
+    if other == "noisy":
+        rng = np.random.default_rng(5)
+        q = np.clip(desc.astype(np.int32) + rng.integers(-40, 41, desc.shape),
+                    -128, 127).astype(np.int8)
+    q = torch.from_numpy(q)[top.cells.long()]
+    args = [t.to(cuda) for t in (q, torch.from_numpy(desc), probs, idx, top.cells)]
+    kw = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4, min_prob=0.1)
+    s, c = match.windowed_match(*args, **kw)
+    sp_, cp = match.windowed_match_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cp)
+    torch.testing.assert_close(s, sp_, rtol=1e-5, atol=0)
+
+
+def test_match_empty_window(cuda):
+    """No usable cell in the window: (-1, cell 0), as on the CPU."""
+    desc = torch.ones(4 * 6, 256, dtype=torch.int8, device=cuda)
+    s, c = match.windowed_match(
+        desc[:2], desc, torch.zeros(24, device=cuda),
+        torch.zeros(24, dtype=torch.int32, device=cuda),
+        torch.tensor([7, 23], dtype=torch.int32, device=cuda),
+        grid_h=4, grid_w=6, radius=1)
+    assert s.tolist() == [-1.0, -1.0] and c.tolist() == [0, 0]
+
+
+@pytest.mark.parametrize("shape", [(256, 9, 9), (64, 9, 9), (3, 9, 9), (100, 4, 4)])
+def test_nullspace(cuda, shape):
+    A = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    A = torch.from_numpy(np.einsum("...ij,...kj->...ik", A, A)).to(cuda)
+    got = nullspace.nullspace_inverse_iteration(A)
+    ref = nullspace.nullspace_plain(A)
+    torch.cuda.synchronize()
+    s = torch.sign(torch.sum(ref * got, dim=-1, keepdim=True))
+    torch.testing.assert_close(got * s, ref, rtol=0, atol=1e-3)
+
+
+def _degenerate_3x3():
+    """tests/test_pallas_kernels.py's cases: rank-2 essential-like, negative
+    determinant, rank-1, and the zero matrix."""
+    E = np.zeros((3, 3), np.float32)
+    E[0, 1], E[1, 0] = 1.0, -1.0
+    neg = np.diag([1.0, 2.0, -3.0]).astype(np.float32)
+    r1 = np.outer([1.0, 2.0, 3.0], [0.5, -1.0, 2.0]).astype(np.float32)
+    return np.stack([E, neg, r1, np.zeros((3, 3), np.float32)])
+
+
+@pytest.mark.parametrize("batch", [256, 64, 1])
+def test_svd3(cuda, batch):
+    A = np.concatenate(
+        [_degenerate_3x3(), np.random.default_rng(batch).normal(size=(batch, 3, 3))]
+    ).astype(np.float32)
+    U, s, V = (x.cpu().numpy() for x in svd3.svd3(torch.from_numpy(A).to(cuda)))
+    _, sp_, _ = svd3.svd3_plain(torch.from_numpy(A).to(cuda))
+    m = max(1.0, float(np.abs(A).max()))
+    np.testing.assert_allclose(s, sp_.cpu().numpy(), atol=2e-4 * m)
+    recon = np.einsum("...ik,...k,...jk->...ij", U, s, V)
+    np.testing.assert_allclose(recon, A, atol=1e-3 * m)
+    np.testing.assert_allclose(np.linalg.det(U), 1.0, atol=1e-3)
+    np.testing.assert_allclose(np.linalg.det(V), 1.0, atol=1e-3)
+
+
+def test_int8_net_card_equals_cpu(cuda):
+    """The f32-carried im2col SuperPoint is integer-exact on the card too."""
+    K = np.array([[400.0, 0, 160.0], [0, 400.0, 48.0], [0, 0, 1]], np.float32)
+    img = torch.from_numpy(synthetic.render_box_room(K, synthetic.orbit_poses(96)[0], 96, 320))
+    params = sp.load_params(device="cpu")
+    semi_c, desc_c, _ = sp.superpoint_int8(params, img[None])
+    semi_g, desc_g, _ = sp.superpoint_int8(
+        {k: v.to(cuda) for k, v in params.items()}, img[None].to(cuda))
+    assert torch.equal(semi_g.cpu(), semi_c) and torch.equal(desc_g.cpu(), desc_c)

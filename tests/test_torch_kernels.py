@@ -1,0 +1,219 @@
+"""The port's four kernels, held against the JAX package on the CPU.
+
+On the CPU each kernel wrapper runs its plain PyTorch version; these tests
+hold that version against the JAX function it replaces (the jnp path, and
+the Pallas kernel in interpret mode where it has one), on the same numpy
+inputs. The CUDA kernels themselves are held against the plain versions on
+the card by tests/test_torch_cuda.py and by chip_smoke.py.
+"""
+
+import os
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from maveric_slam_tpu.ops import linalg as jlinalg
+from maveric_slam_tpu.ops import matching as jmatching
+from maveric_slam_tpu.ops import pallas_kernels
+from maveric_slam_tpu.ops import softmax_topn as jst
+from maveric_slam_tpu.ops import svd3 as jsvd3
+from maveric_slam_tpu_torch.ops import matching as tmatching
+from maveric_slam_tpu_torch.ops import softmax_topn as tst
+from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+
+REFCACHE = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+    "maveric_slam_tpu", "data", "_refcache",
+    "include_data_quantized_quantized_image0.h.npz",
+)
+
+
+@pytest.fixture(scope="module")
+def image0():
+    """The golden int8 grid of image0, (24, 80, 65) / (24, 80, 256): the
+    header's patch order is column-major, hence the (wc, hc) transpose."""
+    with np.load(REFCACHE) as d:
+        hc, wc = int(d["image0_feature_rows"]), int(d["image0_feature_cols"])
+        semi = d["image0_semi"].reshape(wc, hc, 65).transpose(1, 0, 2).copy()
+        desc = d["image0_desc"].reshape(wc, hc, 256).transpose(1, 0, 2).copy()
+        scale = np.float32(d["image0_semi_scale"])
+    return semi, desc, scale
+
+
+def _port_detector(semi, scale):
+    probs, idx, xy = detector.detector_postproc(
+        torch.from_numpy(semi.reshape(-1, 65)), torch.tensor(scale)
+    )
+    return probs.numpy(), idx.numpy(), xy.numpy()
+
+
+class TestDetector:
+    def test_matches_jnp_path(self, image0):
+        semi, _, scale = image0
+        probs, idx, xy = _port_detector(semi, scale)
+        grid = jst.approx_softmax_grid(semi, scale)
+        xy_ref = np.asarray(jst.subpixel_xy(semi, scale, grid)).reshape(-1, 2)
+        idx_ref = np.asarray(grid.indices).reshape(-1)
+        np.testing.assert_array_equal(idx, idx_ref)
+        np.testing.assert_allclose(probs, np.asarray(grid.probs).reshape(-1), rtol=1e-6)
+        valid = idx_ref != 64
+        assert valid.sum() > 100
+        np.testing.assert_allclose(xy[valid], xy_ref[valid], atol=1e-3)
+
+    def test_matches_pallas_interpret(self, image0):
+        semi, _, scale = image0
+        probs, idx, xy = _port_detector(semi, scale)
+        p_ref, i_ref, xy_ref = (
+            np.asarray(a)
+            for a in pallas_kernels.fused_detector_postproc(
+                semi.reshape(-1, 65), scale, interpret=True
+            )
+        )
+        np.testing.assert_array_equal(idx, i_ref)
+        np.testing.assert_allclose(probs, p_ref, rtol=1e-6)
+        valid = i_ref != 64
+        np.testing.assert_allclose(xy[valid], xy_ref[valid], atol=1e-3)
+
+
+@pytest.mark.parametrize("mode", ["prob", "reference"])
+def test_top_n_cells_exact(image0, mode):
+    semi, _, scale = image0
+    jgrid = jst.approx_softmax_grid(semi, scale)
+    tgrid = tst.approx_softmax_grid(torch.from_numpy(semi), torch.tensor(scale))
+    ref = jst.top_n_select(jgrid, n=100, mode=mode)
+    got = tst.top_n_select(tgrid, n=100, mode=mode)
+    np.testing.assert_array_equal(got.cells.numpy(), np.asarray(ref.cells))
+    np.testing.assert_array_equal(got.mask.numpy(), np.asarray(ref.mask))
+    np.testing.assert_array_equal(got.indices.numpy(), np.asarray(ref.indices))
+    assert int(got.num_selected) == int(ref.num_selected)
+
+
+class TestMatcher:
+    @pytest.fixture(scope="class")
+    def inputs(self, image0):
+        """Self-match of image0 and a match of image0 against a copy with
+        int8 noise, both with the top-100 cells as queries."""
+        semi, desc, scale = image0
+        grid = jst.approx_softmax_grid(semi, scale)
+        top = jst.top_n_select(grid, n=100, mode="prob")
+        rng = np.random.default_rng(5)
+        noisy = np.clip(
+            desc.astype(np.int32) + rng.integers(-40, 41, desc.shape), -128, 127
+        ).astype(np.int8)
+        return (
+            desc.reshape(-1, 256), noisy.reshape(-1, 256),
+            np.array(grid.probs).reshape(-1), np.array(grid.indices).reshape(-1),
+            np.array(top.cells), np.array(top.indices), np.array(top.mask),
+        )
+
+    @pytest.mark.parametrize("other", ["self", "noisy"])
+    def test_matches_jnp_path(self, inputs, other):
+        desc0, noisy, probs0, idx0, cells1, idx1, mask1 = inputs
+        desc1 = desc0 if other == "self" else noisy
+        kw = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4,
+                  match_threshold=0.8, min_prob=0.1)
+        ref = jmatching.windowed_match(desc0, probs0, idx0, desc1, cells1, idx1, mask1, **kw)
+        t = torch.from_numpy
+        got = tmatching.windowed_match(
+            t(desc0), t(probs0), t(idx0), t(desc1), t(cells1), t(idx1), t(mask1), **kw
+        )
+        mask = np.asarray(ref.mask)
+        assert mask.sum() > 20
+        np.testing.assert_array_equal(got.mask.numpy(), mask)
+        np.testing.assert_array_equal(got.cell0.numpy(), np.asarray(ref.cell0))
+        np.testing.assert_allclose(got.score.numpy()[mask], np.asarray(ref.score)[mask], rtol=1e-5)
+        assert int(got.num_matches) == int(ref.num_matches)
+
+    def test_matches_pallas_interpret(self, inputs):
+        desc0, noisy, probs0, idx0, cells1, _, mask1 = inputs
+        q = noisy[cells1]
+        kw = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4, min_prob=0.1)
+        s_ref, c_ref = (
+            np.asarray(a)
+            for a in pallas_kernels.fused_windowed_match(
+                q, desc0, probs0, idx0, cells1, interpret=True, **kw
+            )
+        )
+        t = torch.from_numpy
+        s, c = match.windowed_match(t(q), t(desc0), t(probs0), t(idx0), t(cells1), **kw)
+        rows = mask1 & (s_ref > 0.64)
+        assert rows.sum() > 20
+        np.testing.assert_array_equal(c.numpy()[rows], c_ref[rows])
+        np.testing.assert_allclose(s.numpy()[rows], s_ref[rows], rtol=1e-5)
+
+    def test_empty_window_gives_minus_one_at_cell_zero(self):
+        """No usable cell in the window: the full-row first maximum is
+        (-1, cell 0), whatever the window's position."""
+        desc = torch.ones(4 * 6, 256, dtype=torch.int8)
+        probs = torch.zeros(24)  # all below min_prob
+        s, c = match.windowed_match(
+            desc[:2], desc, probs, torch.zeros(24, dtype=torch.int32),
+            torch.tensor([7, 23], dtype=torch.int32), grid_h=4, grid_w=6, radius=1,
+        )
+        assert s.tolist() == [-1.0, -1.0] and c.tolist() == [0, 0]
+
+
+def _psd(shape, seed):
+    A = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
+    return np.einsum("...ij,...kj->...ik", A, A)
+
+
+class TestNullspace:
+    @pytest.mark.parametrize("shape", [(256, 9, 9), (3, 9, 9), (150, 4, 4), (16, 32, 9, 9)])
+    def test_matches_jnp_path(self, shape):
+        A = _psd(shape, 0)
+        ref = np.asarray(jlinalg.smallest_eigvec_inverse_iteration(A))
+        got = nullspace.nullspace_inverse_iteration(torch.from_numpy(A)).numpy()
+        s = np.sign(np.sum(ref * got, axis=-1, keepdims=True))
+        np.testing.assert_allclose(got * s, ref, atol=1e-4)
+
+    def test_matches_pallas_interpret(self):
+        A = _psd((64, 9, 9), 1)
+        ref = np.asarray(pallas_kernels.nullspace_inverse_iteration(A, interpret=True))
+        got = nullspace.nullspace_inverse_iteration(torch.from_numpy(A)).numpy()
+        s = np.sign(np.sum(ref * got, axis=-1, keepdims=True))
+        np.testing.assert_allclose(got * s, ref, atol=1e-4)
+
+
+def _svd3_cases():
+    rng = np.random.default_rng(2)
+    E = np.zeros((3, 3), np.float32)
+    E[0, 1], E[1, 0] = 1.0, -1.0
+    neg = np.diag([1.0, 2.0, -3.0]).astype(np.float32)
+    r1 = np.outer([1.0, 2.0, 3.0], [0.5, -1.0, 2.0]).astype(np.float32)
+    return [
+        rng.normal(size=(64, 3, 3)).astype(np.float32),
+        rng.normal(size=(3, 3)).astype(np.float32),
+        rng.normal(size=(4, 16, 3, 3)).astype(np.float32),
+        np.stack([E, neg, r1, np.zeros((3, 3), np.float32)]),
+    ]
+
+
+def _check_svd3(A, U, s, V, sr, s_tol):
+    """The bars of tests/test_pallas_kernels.py::TestSvd3Kernel._check."""
+    m = max(1.0, float(np.abs(A).max()))
+    np.testing.assert_allclose(s, sr, atol=s_tol * m)
+    recon = np.einsum("...ik,...k,...jk->...ij", U, s, V)
+    np.testing.assert_allclose(recon, A, atol=1e-4 * m)
+    np.testing.assert_allclose(np.linalg.det(U), 1.0, atol=1e-4)
+    np.testing.assert_allclose(np.linalg.det(V), 1.0, atol=1e-4)
+    eye = np.broadcast_to(np.eye(3, dtype=np.float32), U.shape)
+    np.testing.assert_allclose(np.einsum("...ij,...ik->...jk", U, U), eye, atol=1e-4)
+    np.testing.assert_allclose(np.einsum("...ij,...ik->...jk", V, V), eye, atol=1e-4)
+
+
+class TestSvd3:
+    @pytest.mark.parametrize("case", range(4))
+    def test_matches_jnp_path(self, case):
+        A = _svd3_cases()[case]
+        _, sr, _ = (np.asarray(x) for x in jsvd3.svd3_ref(jnp.asarray(A)))
+        U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
+        _check_svd3(A, U, s, V, sr, 2e-5)
+
+    def test_matches_pallas_interpret(self):
+        A = _svd3_cases()[3]
+        _, sr, _ = (np.asarray(x) for x in pallas_kernels.svd3_pallas(A, interpret=True))
+        U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
+        _check_svd3(A, U, s, V, sr, 2e-5)
