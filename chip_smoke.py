@@ -5,23 +5,31 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build the CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc, all
-     sources at once) and print the build time and ptxas's resource lines;
+  1. build the five CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
+     all sources at once) and print the build time and ptxas's resource lines;
   2. hold each kernel against its plain PyTorch version on the card, on
-     inputs taken from the tracking step at 192x640 (detector C=1920; match
-     N=100 against C=1920; nullspace n=9 at B=256/64/3 and n=4 at B=100;
-     svd3 at B=256/64/1 plus degenerate matrices), at the bars of ROADMAP.md;
+     inputs taken from the tracking step at 192x640 (stem bitwise at
+     (1, 192, 640), (16, 192, 640), (2, 36, 44) and on all-0/all-1 images;
+     detector C=1920 and at S=16 per stream; match N=100 against C=1920 and
+     at S=16 per stream; nullspace n=9 at B=256/64/3 and n=4 at B=100; svd3
+     at B=256/64/1 plus degenerate matrices), at the bars of ROADMAP.md;
   3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
      every launch count set to 0 just before and read just after; check the
      counts, the step statistics and the poses against the exact ground truth;
   4. run the same frames and RANSAC noise through the port on the CPU and
      print the per-step differences from the card;
-  5. time each kernel, its plain version and a one-call PyTorch yardstick
-     where there is one (never used by the port) with CUDA events, and each
-     layer of the step alone with the host clock;
-  6. then, under torch.profiler, each kernel's own device time, each
-     layer's device-busy time and launches, and the step's device-busy
-     share (last, so that no untraced timing runs after a profiler).
+  5. drive `track_step_batched` over 16 streams (16 phases of the orbit, 6
+     frames each) and `PipelinedTracker` (chunks of 8, 17 frames), each with
+     its own launch counts, and hold them against single-stream `Tracker`
+     runs on the same frames and noise;
+  6. time each kernel, its plain version and a one-call PyTorch yardstick
+     where there is one (never used by the port) with CUDA events, each
+     layer of the step alone with the host clock, the batched step and the
+     chunked tracker;
+  7. then, under torch.profiler, each kernel's own device time, each
+     layer's device-busy time and launches, and the single and batched
+     steps' device-busy shares (last, so that no untraced timing runs after
+     a profiler).
 The last three lines are the card's name and power limit, a JSON object of
 per-kernel numbers, and `{"ok": true, "device": {...}}`.
 
@@ -49,6 +57,8 @@ H, W, FOCAL = 192, 640, 800.0  # the 96x320 camera of tests/test_synthetic_accur
 ORBIT_N = 192
 N_FRAMES = 11  # 10 tracking steps
 WARMUP_STEPS = 2  # steps left out of the median step time
+STREAMS, STREAM_FRAMES = 16, 6  # the batched phase: 16 orbit phases, 5 steps each
+CHUNK, CHUNK_FRAMES = 8, 17  # the chunked phase: two full chunks after the first frame
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12  # int8, dense
@@ -99,11 +109,13 @@ def phase_build():
             _log("[build]   " + line.strip())
 
 
-def kernel_inputs(dev, frames, noise, cfg):
-    """The four kernels' inputs as the tracking step forms them, from frames
-    0 and 1: detector logits, match queries and cells, the 8-point normal
-    matrices of the minimal, LO and refit stages, and their nullspaces as
-    3x3 matrices for svd3."""
+def kernel_inputs(dev, frames, noise, cfg, streams):
+    """The five kernels' inputs as the tracking step forms them, from frames
+    0 and 1: the images for the stem, detector logits, match queries and
+    cells, the 8-point normal matrices of the minimal, LO and refit stages,
+    and their nullspaces as 3x3 matrices for svd3; and the batched step's
+    stem images, detector logits and match inputs from the first two frames
+    of the 16 streams."""
     from maveric_slam_tpu_torch.geometry import epipolar
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.ops import matching, softmax_topn as st
@@ -147,7 +159,26 @@ def kernel_inputs(dev, frames, noise, cfg):
     degenerate[0, 0, 1], degenerate[0, 1, 0] = 1.0, -1.0
     degenerate[1] = torch.diag(torch.tensor([1.0, 2.0, -3.0]))
     degenerate[2] = torch.outer(torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.5, -1.0, 2.0]))
+
+    s = len(streams)
+    first = torch.from_numpy(np.stack([f[0] for f in streams])).to(dev)
+    second = torch.from_numpy(np.stack([f[1] for f in streams])).to(dev)
+    semi16, desc16, sc16 = sp.superpoint_int8(params, torch.cat([first, second]))
+    semi16, desc16 = semi16.reshape(2, s, -1, 65), desc16.reshape(2, s, -1, 256)
+    d0 = detector.detector_postproc_plain(semi16[0], sc16["semi_scale"])
+    d1 = detector.detector_postproc_plain(semi16[1], sc16["semi_scale"])
+    top16 = st.top_n_select(st.SoftmaxGrid(d1[0].reshape(s, fc.grid_h, fc.grid_w),
+                                           d1[1].reshape(s, fc.grid_h, fc.grid_w)),
+                            n=fc.top_n, valid_thresh=fc.valid_prob_thresh, mode=fc.top_n_mode)
+    rng = np.random.default_rng(3)
     return {
+        "stem_args": sp.stem_args(params),
+        "stem": {"(1, 192, 640) orbit": imgs[:1].contiguous(), "(16, 192, 640) streams": first,
+                 "(2, 36, 44) seeded": torch.from_numpy(rng.random((2, 36, 44), dtype=np.float32)).to(dev),
+                 "(2, 192, 640) all 0 / all 1": torch.stack([torch.zeros(H, W), torch.ones(H, W)]).to(dev)},
+        "detector16": (semi16[1].contiguous(), sc16["semi_scale"]),
+        "match16": (torch.take_along_dim(desc16[1], top16.cells.long()[..., None], dim=1),
+                    desc16[0].contiguous(), d0[0], d0[1], top16.cells),
         "detector": (semi[1].contiguous(), scales["semi_scale"]),
         "match": (desc[1][top.cells.long()], desc[0], det[0][0], det[0][1], top.cells),
         "match_kw": dict(grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
@@ -159,9 +190,36 @@ def kernel_inputs(dev, frames, noise, cfg):
 
 def phase_kernels(inp):
     """Each kernel against its plain version on the same card inputs."""
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
-    errs = {}
+    errs = {"fused_stem": 0.0}
+    for label, img in inp["stem"].items():
+        got = stem.fused_stem(img, *inp["stem_args"])
+        ref = stem.fused_stem_plain(img, *inp["stem_args"])
+        _require(torch.equal(got, ref), f"fused_stem {label}: not bitwise equal to the layered stage 1")
+        errs["fused_stem"] = max(errs["fused_stem"], float((got.int() - ref.int()).abs().max()))
+        _log(f"[kernels] fused_stem {label}: bitwise equal to the layered stage 1, "
+             f"{tuple(got.shape)} int8, {100 * float((ref > 0).float().mean()):.1f}% nonzero, "
+             f"{100 * float((ref == 127).float().mean()):.2f}% at 127")
+
+    p, i, xy = detector.detector_postproc(*inp["detector16"])
+    pp, ip, xyp = detector.detector_postproc_plain(*inp["detector16"])
+    for k in range(p.shape[0]):
+        v = ip[k] != 64
+        _require(torch.equal(i[k], ip[k]), f"batched detector stream {k}: argmax differs")
+        torch.testing.assert_close(p[k], pp[k], rtol=1e-6, atol=0)
+        torch.testing.assert_close(xy[k][v], xyp[k][v], rtol=0, atol=1e-3)
+    _log(f"[kernels] detector S={p.shape[0]} C={p.shape[1]} (one launch): argmax equal per stream, "
+         f"max |dprob| {float((p - pp).abs().max()):.3g}, "
+         f"max |dxy| {float((xy - xyp)[ip != 64].abs().max()):.3g}")
+    s16, c16 = match.windowed_match(*inp["match16"], **inp["match_kw"])
+    sp16, cp16 = match.windowed_match_plain(*inp["match16"], **inp["match_kw"])
+    for k in range(s16.shape[0]):
+        _require(torch.equal(c16[k], cp16[k]), f"batched match stream {k}: best cells differ")
+        torch.testing.assert_close(s16[k], sp16[k], rtol=1e-5, atol=0)
+    _log(f"[kernels] match S={s16.shape[0]} N={s16.shape[1]} (one launch): cells equal per stream, "
+         f"max |dscore| {float((s16 - sp16).abs().max()):.3g}")
+
     p, i, xy = detector.detector_postproc(*inp["detector"])
     pp, ip, xyp = detector.detector_postproc_plain(*inp["detector"])
     v = ip != 64
@@ -239,6 +297,125 @@ def check_poses(steps, gt_R, gt_t, label):
     _require(sum(s["valid"] and s["matches"] >= 8 for s in steps) >= 8,
              f"{label}: fewer than 8 valid steps with >= 8 matches")
     _require(max(rot) < 2.0 and float(np.mean(tdir)) < 25.0, f"{label}: pose errors {rot} {tdir}")
+
+
+def phase_batched(streams, noises, cfg):
+    """`track_step_batched` over S streams of 192x640 with injected noise,
+    counts set to 0 just before `init_states_batched` and read after the
+    last step. Every stream is checked against the ground truth and against
+    a single-stream `Tracker` over its frames and noise on the card.
+    Returns the step wall times (host clock, synchronised)."""
+    from maveric_slam_tpu_torch.frontend import tracker
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.utils.trajectory import relative_from_poses
+
+    cuda = torch.device("cuda")
+    params = sp.load_params(device=cuda)
+    seq = torch.from_numpy(np.stack([f for f, _ in streams], axis=1)).to(cuda)  # (T, S, H, W)
+    n_steps, s = seq.shape[0] - 1, seq.shape[1]
+    dev_noise = [(g.to(cuda), l.to(cuda)) for g, l in noises]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    states = tracker.init_states_batched(params, seq[0], cfg)
+    results, times = [], []
+    for j in range(n_steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        states, res = tracker.track_step_batched(params, states, seq[j + 1], cfg, *dev_noise[j])
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        results.append(res)
+    launches = kernels.launch_counts()
+    _log(f"[batched] S={s} at {H}x{W}, {n_steps} steps, kernels {json.dumps(launches)}")
+    expected = {"detector_postproc": n_steps + 1, "windowed_match": n_steps,
+                "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
+                "fused_stem": n_steps + 1}
+    _require(launches == expected, f"batched launches {launches}, expected {expected}")
+
+    worst, failures, tdirs = {"dR": 0.0, "dt": 0.0, "rot": 0.0}, [], []
+    for k, (frames, poses) in enumerate(streams):
+        gt_R, gt_t = relative_from_poses(poses)
+        steps = [{"R": r.R[k].cpu().numpy(), "t": r.t[k].cpu().numpy(),
+                  "matches": int(r.num_matches[k]), "inliers": int(r.num_inliers[k]),
+                  "valid": bool(r.valid[k])} for r in results]
+        rot = [_rot_deg(st["R"], R) for st, R in zip(steps, gt_R)]
+        tdir = [_dir_deg(st["t"], t) for st, t in zip(steps, gt_t)]
+        n_ok = sum(st["valid"] and st["matches"] >= 8 for st in steps)
+        single, _ = track(cuda, frames, [(g[k], l[k]) for g, l in noises], cfg)
+        dR = max(float(np.abs(a["R"] - b["R"]).max()) for a, b in zip(steps, single))
+        dt = max(float(np.abs(a["t"] - b["t"]).max()) for a, b in zip(steps, single))
+        drot = max(_rot_deg(a["R"], b["R"]) for a, b in zip(steps, single))
+        # check_poses's bars on 5 steps: 4 valid where it asks 8 of 10, every
+        # rotation error under 2 deg, and the translation-direction error
+        # under 25 deg at the median per stream and at the mean over all
+        # streams' steps (below). One step of 5 whose translation flips
+        # (121-136 deg on 3 of 16 streams, the single-stream Tracker alike)
+        # would move a 5-step mean past 25 deg on its own. All streams are
+        # printed before any check fails.
+        tdirs.extend(tdir)
+        for ok, what in ((n_ok >= n_steps - 1, f"{n_ok} valid steps with >= 8 matches"),
+                         (max(rot) < 2.0 and float(np.median(tdir)) < 25.0, f"pose errors {rot} {tdir}"),
+                         ([a["matches"] for a in steps] == [b["matches"] for b in single],
+                          "match counts differ from the single-stream run"),
+                         (drot < 1.0, f"rotations differ from the single stream by {drot} deg")):
+            if not ok:
+                failures.append(f"batched stream {k}: {what}")
+        worst = {"dR": max(worst["dR"], dR), "dt": max(worst["dt"], dt), "rot": max(worst["rot"], drot)}
+        _log(f"[batched] stream {k}: valid {n_ok}/{n_steps}, matches {[a['matches'] for a in steps]}, "
+             f"inliers {[a['inliers'] for a in steps]} (single {[b['inliers'] for b in single]}), "
+             f"rot err max {max(rot):.3f} deg, t-dir err median {np.median(tdir):.2f} mean "
+             f"{np.mean(tdir):.2f} deg; vs single: "
+             f"max |dR| {dR:.3g} max |dt| {dt:.3g} rot {drot:.4f} deg")
+    _log(f"[batched] all streams vs single: max |dR| {worst['dR']:.3g} max |dt| {worst['dt']:.3g} "
+         f"max rot diff {worst['rot']:.4f} deg; t-dir err mean over all {len(tdirs)} steps "
+         f"{np.mean(tdirs):.2f} deg")
+    if not np.mean(tdirs) < 25.0:
+        failures.append(f"mean t-dir error over all streams {np.mean(tdirs)} deg")
+    _require(not failures, "; ".join(failures))
+    return times
+
+
+def phase_chunk(frames, noises, cfg):
+    """`PipelinedTracker` (chunks of CHUNK) over the frames on the card, with
+    its own launch counts, against `Tracker` on the same frames and noise.
+    Returns the wall time of each chunk (host clock, synchronised)."""
+    from maveric_slam_tpu_torch.frontend.tracker import PipelinedTracker
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+
+    cuda = torch.device("cuda")
+    pipe = PipelinedTracker(sp.load_params(device=cuda), cfg, chunk=CHUNK, device=cuda)
+    dev_noise = [(g.to(cuda), l.to(cuda)) for g, l in noises]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pipe.process(frames[0])
+    chunk_s = []
+    for c in range(0, len(frames) - 1, CHUNK):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for f, nz in zip(frames[1 + c:1 + c + CHUNK], dev_noise[c:c + CHUNK]):
+            pipe.process(f, *nz)
+        torch.cuda.synchronize()
+        chunk_s.append(time.perf_counter() - t0)
+    launches = kernels.launch_counts()
+    n_steps, n_chunks = len(frames) - 1, len(chunk_s)
+    _require(not pipe._buf and len(pipe.rel_poses) == n_steps, "chunked: frames left in the buffer")
+    _log(f"[chunk] chunk={CHUNK}, {n_steps} steps, kernels {json.dumps(launches)}")
+    expected = {"detector_postproc": n_chunks + 1, "windowed_match": n_steps,
+                "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
+                "fused_stem": n_chunks + 1}
+    _require(launches == expected, f"chunked launches {launches}, expected {expected}")
+    single, _ = track(cuda, frames, noises, cfg)
+    dR = max(float(np.abs(R - b["R"]).max()) for (R, _), b in zip(pipe.rel_poses, single))
+    dt = max(float(np.abs(t - b["t"]).max()) for (_, t), b in zip(pipe.rel_poses, single))
+    for key in ("matches", "inliers"):
+        _require([a[key] for a in pipe.stats] == [b[key] for b in single],
+                 f"chunked: {key} differ from Tracker")
+    _require(dR <= 1e-5 and dt <= 1e-5, f"chunked: poses differ from Tracker by {dR}, {dt}")
+    _log(f"[chunk] vs Tracker: matches and inliers equal, max |dR| {dR:.3g} max |dt| {dt:.3g}; "
+         f"matches {[a['matches'] for a in pipe.stats]}")
+    return chunk_s
 
 
 def phase_profile(frames, noises, cfg, steps=3):
@@ -387,8 +564,17 @@ def _nullspace_ops(n, iters=10):
 SVD3_OPS = 1600  # f32 operations a matrix: A^T A, 18 Jacobi rotations, B = AV, sort, U
 
 
+def _stem_work(s, h, w):
+    """(bytes, int8 operations) of the stem at (s, h, w): the f32 images,
+    the weights and constants read once, the pooled int8 output written
+    once; conv1a's 9 and conv1b's 576 multiply-adds per output channel and
+    pixel."""
+    bytes_ = s * h * w * 4 + 9 * 64 * 4 + 9 * 64 * 64 + 4 * (3 + 2 * 64) + s * (h // 2) * (w // 2) * 64
+    return bytes_, 2 * s * h * w * 64 * (9 + 576)
+
+
 def phase_timing(inp, launches, errs):
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
     semi, scale = inp["detector"]
     c = semi.shape[0]
@@ -404,27 +590,36 @@ def phase_timing(inp, launches, errs):
     ata = inp["nullspace"][0]
     E = inp["svd3"][0]
     b9, b3 = ata.shape[0], E.shape[0]
+    img1 = inp["stem"]["(1, 192, 640) orbit"]
+    img16 = inp["stem"]["(16, 192, 640) streams"]
+    sargs = inp["stem_args"]
+    st_bytes, st_ops = _stem_work(*img1.shape)
     spec = [
-        dict(name="detector_postproc", src="detector.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:92",
+        dict(name="fused_stem", src="stem.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:737",
+             kern=lambda: stem.fused_stem(img1, *sargs),
+             plain=lambda: stem.fused_stem_plain(img1, *sargs), lib=None,
+             names=("stem_kernel",), bytes=st_bytes, ops=st_ops, rate=INT8_OPS_PER_S,
+             shape=f"S=1 {img1.shape[1]}x{img1.shape[2]}"),
+        dict(name="detector_postproc", src="detector.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:93",
              kern=lambda: detector.detector_postproc(semi, scale),
              plain=lambda: detector.detector_postproc_plain(semi, scale), lib=None,
              names=("detector_kernel",), bytes=c * 65 + 4 + c * 16,
              ops=c * (65 * 3 * 4 + 65 + 64 + 9 * 5 + 6), rate=F32_OPS_PER_S,
              shape=f"C={c}"),
-        dict(name="windowed_match", src="match.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:169",
+        dict(name="windowed_match", src="match.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:173",
              kern=lambda: match.windowed_match(q, d0, pr0, ix0, cells, **kw),
              plain=lambda: match.windowed_match_plain(q, d0, pr0, ix0, cells, **kw), lib=None,
              names=("match_kernel",), bytes=n * 256 + c * 256 + c * 8 + n * 4 + n * 8,
              ops=2 * 256 * (pairs + n + c), rate=INT8_OPS_PER_S,
              shape=f"N={n} C={c} window pairs={pairs}"),
         dict(name="nullspace_inverse_iteration", src="nullspace.cu",
-             replaces="maveric_slam_tpu/ops/pallas_kernels.py:292",
+             replaces="maveric_slam_tpu/ops/pallas_kernels.py:293",
              kern=lambda: nullspace.nullspace_inverse_iteration(ata),
              plain=lambda: nullspace.nullspace_plain(ata),
              lib=lambda: torch.linalg.eigh(ata),
              names=("nullspace_kernel",), bytes=b9 * (81 + 9) * 4,
              ops=b9 * _nullspace_ops(9), rate=F32_OPS_PER_S, shape=f"B={b9} n=9"),
-        dict(name="svd3", src="svd3.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:462",
+        dict(name="svd3", src="svd3.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:463",
              kern=lambda: svd3.svd3(E), plain=lambda: svd3.svd3_plain(E),
              lib=lambda: torch.linalg.svd(E),
              names=("svd3_kernel",), bytes=b3 * (9 + 9 + 3 + 9) * 4,
@@ -452,6 +647,15 @@ def phase_timing(inp, launches, errs):
              f"library {lib if lib is None else f'{lib:.4f}'} ms, bound {row['bound_ms']:.2e} ms "
              f"({row['bound_by']}: {k['bytes']} B, {k['ops']} ops)")
         out.append(row)
+    b16, o16 = _stem_work(*img16.shape)
+    k16 = _event_ms(lambda: stem.fused_stem(img16, *sargs), 50)
+    p16 = _event_ms(lambda: stem.fused_stem_plain(img16, *sargs), 5)
+    _log(f"[timing] fused_stem (S=16 {H}x{W}): call {k16:.4f} ms, layered stage 1 {p16:.4f} ms, "
+         f"bound {max(b16 / HBM_BYTES_PER_S, o16 / INT8_OPS_PER_S) * 1e3:.2e} ms")
+    det16, m16 = inp["detector16"], inp["match16"]
+    _log(f"[timing] detector_postproc (S=16 C={det16[0].shape[1]}): call "
+         f"{_event_ms(lambda: detector.detector_postproc(*det16), 200):.4f} ms; windowed_match "
+         f"(S=16 N={m16[0].shape[1]}): call {_event_ms(lambda: match.windowed_match(*m16, **kw), 200):.4f} ms")
     for a in inp["nullspace"][1:] + inp["svd3"][1:3]:
         fn = (lambda a=a: svd3.svd3(a)) if a.shape[-1] == 3 else (lambda a=a: nullspace.nullspace_inverse_iteration(a))
         _log(f"[timing] {'svd3' if a.shape[-1] == 3 else 'nullspace'} {tuple(a.shape)}: "
@@ -459,17 +663,55 @@ def phase_timing(inp, launches, errs):
     return out, spec
 
 
-def phase_traced(rows, spec, layers, frames, noises, cfg):
+def phase_profile_batched(streams, noises, cfg, steps=2):
+    """The batched step under torch.profiler: device-busy share of the wall
+    time and launches per step, after one untraced warm-up step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maveric_slam_tpu_torch.frontend import tracker
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    cuda = torch.device("cuda")
+    params = sp.load_params(device=cuda)
+    seq = torch.from_numpy(np.stack([f for f, _ in streams], axis=1)).to(cuda)
+    dev_noise = [(g.to(cuda), l.to(cuda)) for g, l in noises]
+    states = tracker.init_states_batched(params, seq[0], cfg)
+    states, _ = tracker.track_step_batched(params, states, seq[1], cfg, *dev_noise[0])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(1, 1 + steps):
+            states, _ = tracker.track_step_batched(params, states, seq[j + 1], cfg, *dev_noise[j])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    _log(f"[profile] batched S={seq.shape[1]}, {steps} steps: wall {wall_ms / steps:.3f} ms/step, "
+         f"device busy {busy_ms / steps:.3f} ms/step ({100 * busy_ms / wall_ms:.1f}%), "
+         f"{len(kern) / steps:.0f} kernels/step")
+
+
+def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b):
     """The profiler's numbers, taken after every untraced timing: each
-    kernel's own device time, each layer's device-busy time and launches per
-    call, and the whole step's device-busy share and heaviest kernels."""
+    kernel's own device time, the layered stage 1's device time beside the
+    stem's, each layer's device-busy time and launches per call, and the
+    single and batched steps' device-busy shares and heaviest kernels."""
+    from maveric_slam_tpu_torch.ops.kernels import stem
+
     for row, k in zip(rows, spec):
         row["device_ms"] = _device_ms(k["kern"], k["names"])
         _log(f"[traced] {row['name']}: device {row['device_ms']} ms/launch")
+    for label in ("(1, 192, 640) orbit", "(16, 192, 640) streams"):
+        img = inp["stem"][label]
+        kern = _device_ms(lambda: stem.fused_stem(img, *inp["stem_args"]), ("stem_kernel",), 20)
+        busy, count = _kernel_events(lambda: stem.fused_stem_plain(img, *inp["stem_args"]), 3)
+        _log(f"[traced] stage 1 at {label}: fused_stem device {kern} ms/launch; layered stage 1 "
+             f"(the path it replaces) device busy {busy:.3f} ms/call, {count:.0f} kernels/call")
     for name, fn in layers:
         busy, count = _kernel_events(fn, 5)
         _log(f"[traced] {name}: device busy {busy:.3f} ms/call, {count:.0f} kernels/call")
     phase_profile(frames, noises, cfg)
+    phase_profile_batched(streams, noises_b, cfg)
 
 
 def main():
@@ -490,19 +732,30 @@ def main():
     phase_build()
 
     cfg = _config()
-    poses = synthetic.orbit_poses(ORBIT_N)[:N_FRAMES]
-    frames = [synthetic.render_box_room(cfg.working_camera.K, p, H, W) for p in poses]
-    gt_R, gt_t = relative_from_poses(poses)
+    orbit = synthetic.orbit_poses(ORBIT_N)
+    K = cfg.working_camera.K
+    poses = orbit[:CHUNK_FRAMES]
+    frames = [synthetic.render_box_room(K, p, H, W) for p in poses]
+    gt_R, gt_t = relative_from_poses(poses[:N_FRAMES])
     gen = torch.Generator().manual_seed(0)
     m, k = cfg.frontend.top_n, cfg.ransac.num_hypotheses
-    noises = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
-              for _ in range(N_FRAMES - 1)]
+    lo_k = ransac.lo_hypotheses(k)
+    noises = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((lo_k, m), gen, "cpu"))
+              for _ in range(CHUNK_FRAMES - 1)]
+    # The batched phase: stream s runs the orbit from frame s * ORBIT_N / STREAMS.
+    streams = []
+    for s in range(STREAMS):
+        sp_ = orbit[s * ORBIT_N // STREAMS:][:STREAM_FRAMES]
+        streams.append(([synthetic.render_box_room(K, p, H, W) for p in sp_], sp_))
+    gen_b = torch.Generator().manual_seed(1)
+    noises_b = [(ransac.gumbel((STREAMS, k, m), gen_b, "cpu"),
+                 ransac.gumbel((STREAMS, lo_k, m), gen_b, "cpu")) for _ in range(STREAM_FRAMES - 1)]
 
-    inp = kernel_inputs(cuda, frames, noises[0], cfg)
+    inp = kernel_inputs(cuda, frames, noises[0], cfg, [f for f, _ in streams])
     errs = phase_kernels(inp)
 
     kernels.reset_launch_counts()
-    steps, times = track(cuda, frames, noises, cfg)
+    steps, times = track(cuda, frames[:N_FRAMES], noises, cfg)
     launches = kernels.launch_counts()
     _log(f"[track] {H}x{W}, {len(steps)} steps, step time median "
          f"{np.median(times[WARMUP_STEPS:]) * 1e3:.3f} ms over steps {WARMUP_STEPS}.., all (ms): "
@@ -510,11 +763,12 @@ def main():
     _log(f"[track] kernels {json.dumps(launches)}")
     n_steps = len(steps)
     expected = {"detector_postproc": N_FRAMES, "windowed_match": n_steps,
-                "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps}
+                "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
+                "fused_stem": N_FRAMES}
     _require(launches == expected, f"launches {launches}, expected {expected}")
     check_poses(steps, gt_R, gt_t, "track")
 
-    cpu_steps, _ = track(torch.device("cpu"), frames, noises, cfg)
+    cpu_steps, _ = track(torch.device("cpu"), frames[:N_FRAMES], noises, cfg)
     check_poses(cpu_steps, gt_R, gt_t, "cpu")
     for j, (g, c) in enumerate(zip(steps, cpu_steps)):
         _log(f"[cpu-vs-card] step {j}: matches {c['matches']}/{g['matches']} inliers "
@@ -523,10 +777,21 @@ def main():
     _require(max(_rot_deg(g["R"], c["R"]) for g, c in zip(steps, cpu_steps)) < 1.0,
              "card and CPU rotations differ by 1 deg or more")
 
+    b_times = phase_batched(streams, noises_b, cfg)
+    chunk_s = phase_chunk(frames, noises, cfg)
+    single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
+    batched_ms = float(np.median(b_times[1:]) * 1e3)
+    _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")
+    _log(f"[timing] batched step (S={STREAMS}) median {batched_ms:.3f} ms over steps 1.. "
+         f"(all: {' '.join(f'{t * 1e3:.3f}' for t in b_times)}) = {STREAMS * 1e3 / batched_ms:.2f} "
+         f"frames/s aggregate")
+    _log(f"[timing] chunked (K={CHUNK}) chunks {' '.join(f'{t * 1e3:.3f}' for t in chunk_s)} ms = "
+         f"{' '.join(f'{CHUNK / t:.2f}' for t in chunk_s)} frames/s")
+
     rows, spec = phase_timing(inp, launches, errs)
     layers = step_layers(frames, noises, cfg)
     phase_layers(layers)
-    phase_traced(rows, spec, layers, frames, noises, cfg)
+    phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b)
     _log(f"[done] {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

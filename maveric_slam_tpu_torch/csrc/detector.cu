@@ -4,7 +4,8 @@
 // Replaces: maveric_slam_tpu/ops/pallas_kernels.py fused_detector_postproc
 // (:92-125, kernel _detector_kernel :38-89).
 //
-// Per cell c of C (row-major over the Hc x Wc grid), from 65 int8 logits:
+// Per cell c of S x C (S streams, each C cells row-major over its Hc x Wc
+// grid; rows are counted within each stream), from 65 int8 logits:
 //   e_k   = 1 + sum_{i<degree} p_i x^i   (Taylor exp, p_i = p_{i-1}*scale/i,
 //           the operation order of top_N.c:61-65), 0 where x < 0;
 //   denom = sum_k e_k + FLT_MIN;  first max over channels 0..63;
@@ -42,7 +43,8 @@ __global__ void detector_kernel(const int8_t* __restrict__ semi,
                                 float* __restrict__ probs,
                                 int* __restrict__ idx_out,
                                 float* __restrict__ xy,
-                                int num_cells, int grid_w, int degree) {
+                                int num_cells, int cells_per_stream, int grid_w,
+                                int degree) {
   int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= num_cells) return;
   const float scale = *scale_ptr;
@@ -101,7 +103,8 @@ __global__ void detector_kernel(const int8_t* __restrict__ semi,
     }
   }
   den3 = fmaxf(den3, 1e-20f);
-  const float col = (float)(c % grid_w), rowf = (float)(c / grid_w);
+  const int cell = c % cells_per_stream;
+  const float col = (float)(cell % grid_w), rowf = (float)(cell / grid_w);
   xy[2 * c] = __fadd_rn(__fmul_rn(col, 8.0f), __fdiv_rn(sx, den3));
   xy[2 * c + 1] = __fadd_rn(__fmul_rn(rowf, 8.0f), __fdiv_rn(sy, den3));
 }
@@ -109,13 +112,14 @@ __global__ void detector_kernel(const int8_t* __restrict__ semi,
 }  // namespace
 
 extern "C" int detector_postproc(const void* semi, const void* scale, void* probs,
-                                 void* idx, void* xy, int num_cells, int grid_w,
-                                 int degree, void* stream) {
+                                 void* idx, void* xy, int num_cells,
+                                 int cells_per_stream, int grid_w, int degree,
+                                 void* stream) {
   if (num_cells <= 0) return (int)cudaSuccess;
   const int threads = 128;
   const int blocks = (num_cells + threads - 1) / threads;
   detector_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       (const int8_t*)semi, (const float*)scale, (float*)probs, (int*)idx,
-      (float*)xy, num_cells, grid_w, degree);
+      (float*)xy, num_cells, cells_per_stream, grid_w, degree);
   return (int)cudaGetLastError();
 }

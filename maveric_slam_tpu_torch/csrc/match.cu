@@ -19,6 +19,10 @@
 // Pallas kernel's plain argmax takes the LAST maximum under Mosaic; the
 // first is the contract.)
 //
+// Streams: with S streams the queries are (S, N) and the cells (S, C), and
+// stream s's queries see only stream s's cells; best_cell is within the
+// stream. Block (q, s) of an (N, S) grid takes query q of stream s.
+//
 // Bound on this card: bytes. The main path (N=100 queries, C=1920 cells of
 // 256 int8) reads ~0.53 MB once, ~0.16 us at 3.35 TB/s; the window's int8
 // products are ~4 M operations. Both are far under a launch; the kernel's
@@ -60,7 +64,11 @@ __global__ void match_kernel(const int8_t* __restrict__ desc1_sel,
                              int radius, float min_prob, int is_signed) {
   __shared__ float s_score[kWarps];
   __shared__ int s_cell[kWarps];
-  const int q = blockIdx.x;
+  const int num_cells = grid_h * grid_w;
+  const size_t q = (size_t)blockIdx.y * gridDim.x + blockIdx.x;  // query row of all S * N
+  desc0 += (size_t)blockIdx.y * num_cells * kDim;
+  probs0 += (size_t)blockIdx.y * num_cells;
+  indices0 += (size_t)blockIdx.y * num_cells;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
 
@@ -115,11 +123,11 @@ __global__ void match_kernel(const int8_t* __restrict__ desc1_sel,
 extern "C" int windowed_match(const void* desc1_sel, const void* desc0,
                               const void* probs0, const void* indices0,
                               const void* cells1, void* best_score, void* best_cell,
-                              int n, int grid_h, int grid_w, int shift_x,
+                              int n, int num_streams, int grid_h, int grid_w, int shift_x,
                               int shift_y, int radius, float min_prob,
                               int is_signed, void* stream) {
-  if (n <= 0) return (int)cudaSuccess;
-  match_kernel<<<n, 32 * kWarps, 0, (cudaStream_t)stream>>>(
+  if (n <= 0 || num_streams <= 0) return (int)cudaSuccess;
+  match_kernel<<<dim3(n, num_streams), 32 * kWarps, 0, (cudaStream_t)stream>>>(
       (const int8_t*)desc1_sel, (const int8_t*)desc0, (const float*)probs0,
       (const int*)indices0, (const int*)cells1, (float*)best_score,
       (int*)best_cell, grid_h, grid_w, shift_x, shift_y, radius, min_prob,

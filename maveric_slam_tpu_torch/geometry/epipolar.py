@@ -11,7 +11,7 @@ from typing import Tuple
 
 import torch
 
-from ..ops.linalg import smallest_eigvec_inverse_iteration
+from ..ops.linalg import apply_rows, smallest_eigvec_inverse_iteration
 from ..ops.svd3 import svd3
 
 _W = ((0.0, -1.0, 0.0), (1.0, 0.0, 0.0), (0.0, 0.0, 1.0))
@@ -68,8 +68,8 @@ def sampson_distance(E: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> tor
     ones = torch.ones_like(p1[..., :1])
     x1 = torch.cat([p1, ones], dim=-1)
     x2 = torch.cat([p2, ones], dim=-1)
-    Ex1 = x1 @ E.transpose(-1, -2)  # (..., M, 3): (E x1)_i
-    Etx2 = x2 @ E  # (..., M, 3): (E^T x2)_i
+    Ex1 = apply_rows(x1, E)  # (..., M, 3): (E x1)_i
+    Etx2 = apply_rows(x2, E.transpose(-1, -2))  # (..., M, 3): (E^T x2)_i
     num = torch.sum(x2 * Ex1, dim=-1) ** 2
     den = Ex1[..., 0] ** 2 + Ex1[..., 1] ** 2 + Etx2[..., 0] ** 2 + Etx2[..., 1] ** 2
     return num / torch.clamp(den, min=1e-12)
@@ -80,8 +80,9 @@ def triangulate(R, t, p1, p2) -> torch.Tensor:
     R (..., 3, 3), t (..., 3), p1/p2 (..., M, 2) -> X (..., M, 3) in cam 1."""
     a = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
     d2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
-    b = d2 @ R  # R^T [p2;1] per row
-    c2 = -(t[..., None, :] @ R)  # (..., 1, 3): -R^T t
+    Rt = R.transpose(-1, -2)
+    b = apply_rows(d2, Rt)  # R^T [p2;1] per row
+    c2 = -apply_rows(t[..., None, :], Rt)  # (..., 1, 3): -R^T t
     aa = torch.sum(a * a, dim=-1)
     bb = torch.sum(b * b, dim=-1)
     ab = torch.sum(a * b, dim=-1)
@@ -111,7 +112,7 @@ def choose_pose_by_cheirality(R1, R2, t, p1, p2, weights=None
     cands_t = torch.stack([t, -t, t, -t], dim=0)
     X = triangulate(cands_R, cands_t, p1, p2)  # (4, ..., M, 3)
     z1 = X[..., 2]
-    z2 = (X @ cands_R.transpose(-1, -2))[..., 2] + cands_t[..., None, 2]
+    z2 = apply_rows(X, cands_R)[..., 2] + cands_t[..., None, 2]
     good = (z1 > 0) & (z2 > 0)
     if weights is not None:
         good = good & (weights > 0)

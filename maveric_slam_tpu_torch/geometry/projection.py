@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from ..ops.lie import hat
+from ..ops.linalg import apply_rows
 
 
 def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
@@ -22,9 +23,10 @@ def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
 
 
 def residual_and_jacobians(K, R, t, X, z):
-    """Residuals r (N, 2), J_pose (N, 2, 6) and J_point (N, 2, 3) for N
-    factors (X (N, 3) world points, z (N, 2) pixels) sharing one pose."""
-    p = X @ R.T + t
+    """Residuals r (..., N, 2), J_pose (..., N, 2, 6) and J_point
+    (..., N, 2, 3) for N factors (X (..., N, 3) world points, z (..., N, 2)
+    pixels) sharing one pose R (..., 3, 3), t (..., 3) per leading index."""
+    p = apply_rows(X, R) + t[..., None, :]
     x, y = p[..., 0], p[..., 1]
     z_ = torch.clamp(p[..., 2], min=1e-6)
     fx, fy = K[0, 0], K[1, 1]
@@ -40,10 +42,10 @@ def residual_and_jacobians(K, R, t, X, z):
     )
     eye = torch.eye(3, dtype=p.dtype, device=p.device).expand(p.shape[:-1] + (3, 3))
     dp_dxi = torch.cat([eye, -hat(p)], dim=-1)
-    return r, dpi @ dp_dxi, dpi @ R
+    return r, dpi @ dp_dxi, dpi @ R[..., None, :, :]
 
 
 def huber_weights(r: torch.Tensor, delta: float) -> torch.Tensor:
-    """IRLS weights (N,) in (0, 1] for the Huber loss on residual norms."""
+    """IRLS weights (..., N) in (0, 1] for the Huber loss on residual norms."""
     norm = torch.linalg.vector_norm(r, dim=-1)
     return torch.where(norm <= delta, 1.0, delta / torch.clamp(norm, min=1e-12))

@@ -14,8 +14,9 @@ cuDNN f32 convolution is NOT used: it may pick Winograd or FFT algorithms,
 which are not exact on integers. The CPU path runs the same code, so the
 CPU tests hold it bitwise against the JAX package.
 
-Only stage 1's layered form (`stem="off"`) exists in this port; the fused
-stem kernel is not ported yet.
+Stage 1 (conv1a, conv1b, 2x2 pool) runs by default as the fused stem
+kernel (`ops/kernels/stem.py`, CUDA `csrc/stem.cu`; its plain version, the
+layered stage 1, on the CPU), bitwise equal to the layered path.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.backend import resolve_device
+from ..ops.kernels import stem as stem_kernel
 
 _ENCODER = ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b"]
 _HEADS = ["convPa", "convPb", "convDa", "convDb"]
@@ -58,6 +60,30 @@ def _layer_params(name: str, w_oihw: np.ndarray, bias, wscale, oscale, device) -
     }
 
 
+def _requant_consts(in_scale, w_scale, bias, out_scale):
+    """The requant's quantized bias round(b / (s_in*s_w)) and multiplier
+    M = s_in*s_w/s_out, in f32, in the JAX package's order."""
+    return torch.round(bias / (in_scale * w_scale)), (in_scale * w_scale) / out_scale
+
+
+def _with_stem(params: Params) -> Params:
+    """Adds stage 1's arguments of the fused stem kernel: its weight layout
+    and the conv1a/conv1b requant constants, formed once here."""
+    w1a, w1b = stem_kernel.stem_weights(params["conv1a_w"], params["conv1b_w"])
+    b1, m1 = _requant_consts(params["input_scale"], params["conv1a_wscale"],
+                             params["conv1a_b"], params["conv1a_oscale"])
+    b2, m2 = _requant_consts(params["conv1a_oscale"], params["conv1b_wscale"],
+                             params["conv1b_b"], params["conv1b_oscale"])
+    params.update(stem_w1a=w1a, stem_w1b=w1b, stem_b1=b1, stem_m1=m1, stem_b2=b2, stem_m2=m2)
+    return params
+
+
+def stem_args(params: Params):
+    """The arguments after the images of `ops.kernels.stem.fused_stem`."""
+    return (params["stem_w1a"], params["stem_w1b"], params["input_scale"], params["stem_b1"],
+            params["stem_m1"], params["stem_b2"], params["stem_m2"])
+
+
 def load_params(path: str | None = None, device=None) -> Params:
     """Weights from the extracted npz (OIHW int8 weights, f32 biases and
     per-tensor scales), on `device` (None: CUDA)."""
@@ -67,7 +93,7 @@ def load_params(path: str | None = None, device=None) -> Params:
     for name in LAYERS:
         params.update(_layer_params(name, raw[f"{name}_w"], raw[f"{name}_b"],
                                     raw[f"{name}_wscale"], raw[f"{name}_oscale"], dev))
-    return params
+    return _with_stem(params)
 
 
 def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
@@ -81,15 +107,14 @@ def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
         params.update(_layer_params(name, w_oihw, jax_params[f"{name}_b"],
                                     jax_params[f"{name}_wscale"],
                                     jax_params[f"{name}_oscale"], dev))
-    return params
+    return _with_stem(params)
 
 
 def _requant(acc, in_scale, w_scale, bias, out_scale, relu: bool):
     """Exact-integer f32 accumulator (N, O, ...) -> qint8 values (as f32):
     bias quantized at s_in*s_w, one multiplier M = s_in*s_w/s_out,
     round-half-even (torch.round), clip to [0 or -128, 127]."""
-    bias_q = torch.round(bias / (in_scale * w_scale))
-    m = (in_scale * w_scale) / out_scale
+    bias_q, m = _requant_consts(in_scale, w_scale, bias, out_scale)
     shape = (-1,) + (1,) * (acc.ndim - 2)
     q = torch.round((acc + bias_q.reshape(shape)) * m)
     return torch.clamp(q, 0.0 if relu else -128.0, 127.0)
@@ -112,21 +137,22 @@ def _qconv(x, params, name, in_scale, relu):
     return q, params[f"{name}_oscale"]
 
 
-def superpoint_int8(params: Params, images: torch.Tensor, stem: str = "off"):
+def superpoint_int8(params: Params, images: torch.Tensor, stem: str = "auto"):
     """Quantized inference on (N, H, W) grayscale images in [0, 1].
 
     Returns semi_q (N, H/8, W/8, 65) int8, desc_q (N, H/8, W/8, 256) int8
     and {"semi_scale", "desc_scale"} () f32 tensors.
-    stem: only "off" (stage 1 as layered convs) exists in this port.
+    stem: "auto" runs stage 1 through `ops.kernels.stem.fused_stem` (the
+    CUDA kernel for CUDA tensors) when H and W are even, and as layered
+    convs otherwise, as the JAX package decides; "off" forces the layered
+    stage 1. ("interpret" is a JAX-only mode.)
     """
-    if stem != "off":
-        raise NotImplementedError(
-            f"stem={stem!r}: only the layered stage 1 (stem='off') is ported")
-    s = params["input_scale"]
-    x = torch.clamp(torch.round(images[:, None] / s), -128, 127)  # NCHW
-    x, sc = _qconv(x, params, "conv1a", s, True)
-    x, sc = _qconv(x, params, "conv1b", sc, True)
-    x = F.max_pool2d(x, 2)
+    if stem not in ("auto", "off"):
+        raise ValueError(f"stem must be 'auto' or 'off', got {stem!r}")
+    even = images.shape[-2] % 2 == 0 and images.shape[-1] % 2 == 0
+    stage1 = stem_kernel.fused_stem if stem == "auto" and even else stem_kernel.fused_stem_plain
+    x = stage1(images, *stem_args(params)).permute(0, 3, 1, 2).to(torch.float32)  # NCHW
+    sc = params["conv1b_oscale"]
     x, sc = _qconv(x, params, "conv2a", sc, True)
     x, sc = _qconv(x, params, "conv2b", sc, True)
     x = F.max_pool2d(x, 2)
@@ -155,7 +181,8 @@ def int8_accumulator_maxima(params: Params, images: torch.Tensor) -> Dict[str, t
 
     def qconv(x, name, in_scale, relu):
         acc = _conv_acc(x, params, name)
-        bias_q = torch.round(params[f"{name}_b"] / (in_scale * params[f"{name}_wscale"]))
+        bias_q, _ = _requant_consts(in_scale, params[f"{name}_wscale"], params[f"{name}_b"],
+                                    params[f"{name}_oscale"])
         maxima[name] = torch.amax(torch.abs(acc + bias_q.reshape(-1, 1, 1)))
         q = _requant(acc, in_scale, params[f"{name}_wscale"], params[f"{name}_b"],
                      params[f"{name}_oscale"], relu)

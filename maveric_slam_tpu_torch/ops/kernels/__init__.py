@@ -5,13 +5,14 @@ tensors and takes the plain PyTorch version beside it only for CPU tensors,
 and a plain integer `launches` that the wrapper raises by one per launch.
 """
 
-from . import detector, match, nullspace, svd3
+from . import detector, match, nullspace, stem, svd3
 
 MODULES = {
     "detector_postproc": detector,
     "windowed_match": match,
     "nullspace_inverse_iteration": nullspace,
     "svd3": svd3,
+    "fused_stem": stem,
 }
 
 

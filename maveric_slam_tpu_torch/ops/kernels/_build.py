@@ -30,7 +30,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maveric_slam_tpu_torch"
-SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu")
+SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu", "stem.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -41,10 +41,11 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # C signature of every entry point: (argtypes), each returns cudaError_t.
 _SIGNATURES = {
-    "detector_postproc": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "windowed_match": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _I, _P),
+    "detector_postproc": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    "windowed_match": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _I, _P),
     "nullspace_inverse_iteration": (_P, _P, _I, _I, _I, _P),
     "svd3": (_P, _P, _P, _P, _I, _I, _P),
+    "fused_stem": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

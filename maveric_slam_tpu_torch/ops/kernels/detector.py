@@ -15,27 +15,40 @@ launches = 0  # kernel launches since the last reset (see ops.kernels)
 MAX_DEGREE = 8  # kMaxDegree of csrc/detector.cu
 
 
+def _check(semi_q: torch.Tensor, grid_w: int, grid_h: int | None) -> None:
+    c = semi_q.shape[-2] if semi_q.ndim in (2, 3) else -1
+    if semi_q.shape[-1:] != (65,) or c < 0 or c % grid_w:
+        raise ValueError(f"semi_q must be (C, 65) or (S, C, 65) with C a multiple of {grid_w}, "
+                         f"got {tuple(semi_q.shape)}")
+    if grid_h is not None and c != grid_h * grid_w:
+        raise ValueError(f"C = {c} cells is not a {grid_h} x {grid_w} grid")
+    if semi_q.dtype != torch.int8:
+        raise TypeError(f"semi_q must be int8, got {semi_q.dtype}")
+
+
 def detector_postproc_plain(semi_q: torch.Tensor, scale: torch.Tensor, degree: int = 5,
-                            grid_w: int = 80):
-    """approx_softmax_grid + subpixel_xy on a (C, 65) row-major cell list."""
-    c = semi_q.shape[0]
-    grid3 = semi_q.reshape(c // grid_w, grid_w, 65)
+                            grid_w: int = 80, grid_h: int | None = None):
+    """approx_softmax_grid + subpixel_xy on (C, 65) or (S, C, 65) row-major
+    cell lists, rows counted within each stream. Same results as
+    `detector_postproc`."""
+    _check(semi_q, grid_w, grid_h)
+    lead, c = semi_q.shape[:-2], semi_q.shape[-2]
+    grid3 = semi_q.reshape(*lead, c // grid_w, grid_w, 65)
     grid = st.approx_softmax_grid(grid3, scale, degree)
     xy = st.subpixel_xy(grid3, scale, grid, degree)
-    return grid.probs.reshape(c), grid.indices.reshape(c), xy.reshape(c, 2)
+    return grid.probs.reshape(*lead, c), grid.indices.reshape(*lead, c), xy.reshape(*lead, c, 2)
 
 
 def detector_postproc(semi_q: torch.Tensor, scale: torch.Tensor, degree: int = 5,
-                      grid_w: int = 80):
-    """(C, 65) int8 logits and a () f32 scale -> probs (C,) f32,
-    indices (C,) int32, xy (C, 2) f32. CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
-    if semi_q.ndim != 2 or semi_q.shape[1] != 65 or semi_q.shape[0] % grid_w:
-        raise ValueError(f"semi_q must be (C, 65) with C a multiple of {grid_w}, got {tuple(semi_q.shape)}")
-    if semi_q.dtype != torch.int8:
-        raise TypeError(f"semi_q must be int8, got {semi_q.dtype}")
+                      grid_w: int = 80, grid_h: int | None = None):
+    """(C, 65) or (S, C, 65) int8 logits and a () f32 scale -> probs (..., C)
+    f32, indices (..., C) int32, xy (..., C, 2) f32, with a cell's row
+    counted within its stream. With `grid_h`, C must be grid_h * grid_w.
+    CPU tensors take the plain version; CUDA tensors launch the kernel, once
+    for all S streams."""
+    _check(semi_q, grid_w, grid_h)
     if semi_q.device.type == "cpu":
-        return detector_postproc_plain(semi_q, scale, degree, grid_w)
+        return detector_postproc_plain(semi_q, scale, degree, grid_w, grid_h)
     if semi_q.device.type != "cuda":
         raise ValueError(f"unsupported device {semi_q.device}")
     if not 1 <= degree <= MAX_DEGREE:
@@ -43,15 +56,16 @@ def detector_postproc(semi_q: torch.Tensor, scale: torch.Tensor, degree: int = 5
     scale = torch.as_tensor(scale, dtype=torch.float32, device=semi_q.device).reshape(())
     semi_q = semi_q.contiguous()
     scale = scale.contiguous()
-    c = semi_q.shape[0]
-    probs = torch.empty(c, dtype=torch.float32, device=semi_q.device)
-    idx = torch.empty(c, dtype=torch.int32, device=semi_q.device)
-    xy = torch.empty(c, 2, dtype=torch.float32, device=semi_q.device)
+    lead, c = semi_q.shape[:-2], semi_q.shape[-2]
+    total = semi_q.numel() // 65
+    probs = torch.empty(*lead, c, dtype=torch.float32, device=semi_q.device)
+    idx = torch.empty(*lead, c, dtype=torch.int32, device=semi_q.device)
+    xy = torch.empty(*lead, c, 2, dtype=torch.float32, device=semi_q.device)
     global launches
     with torch.cuda.device(semi_q.device):
         err = _build.library().detector_postproc(
             semi_q.data_ptr(), scale.data_ptr(), probs.data_ptr(), idx.data_ptr(),
-            xy.data_ptr(), c, grid_w, degree, _build.stream_of(semi_q))
+            xy.data_ptr(), total, c, grid_w, degree, _build.stream_of(semi_q))
     _build.check(err, "detector_postproc")
     launches += 1
     return probs, idx, xy

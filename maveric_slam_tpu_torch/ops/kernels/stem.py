@@ -1,0 +1,79 @@
+"""Fused SuperPoint stage 1 (CUDA `csrc/stem.cu`) and its plain PyTorch
+version, the layered stage 1.
+
+Port of maveric_slam_tpu/ops/pallas_kernels.py fused_stem.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from . import _build
+
+launches = 0  # kernel launches since the last reset (see ops.kernels)
+C = 64  # channels of conv1a and conv1b
+
+
+def stem_weights(w1a_oihw: torch.Tensor, w1b_oihw: torch.Tensor):
+    """The kernel's weight layout, made once when the params are loaded:
+    w1a (9, 64) int32 [tap][out] and w1b (9, 16, 64, 4) int8
+    [tap][in / 4][out][in % 4], tap = 3 * row + col, from OIHW int8."""
+    w1a = w1a_oihw.reshape(C, 9).T.to(torch.int32).contiguous()
+    w1b = w1b_oihw.permute(2, 3, 1, 0).reshape(9, C // 4, 4, C).transpose(2, 3).contiguous()
+    return w1a, w1b
+
+
+def _requant(acc, bias_q, m):
+    return torch.clamp(torch.round((acc + bias_q.reshape(-1, 1, 1)) * m), 0.0, 127.0)
+
+
+def fused_stem_plain(images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2):
+    """Stage 1 as layered ops: quantize, conv1a and conv1b each as im2col +
+    one f32 matmul (exact on these integers, TF32 off) with requant, then a
+    2x2 max-pool. Same arguments and result as `fused_stem`."""
+    wq1a = w1a.T.to(torch.float32)  # (64, 9): the (in, row, col) im2col order
+    wq1b = w1b.permute(2, 1, 3, 0).reshape(C, 9 * C).to(torch.float32)
+    s, h, w = images.shape
+    x = torch.clamp(torch.round(images[:, None] / input_scale), -128, 127)
+    x = _requant((wq1a @ F.unfold(x, 3, padding=1)).reshape(s, C, h, w), b1_q, m1)
+    x = _requant((wq1b @ F.unfold(x, 3, padding=1)).reshape(s, C, h, w), b2_q, m2)
+    return F.max_pool2d(x, 2).permute(0, 2, 3, 1).to(torch.int8).contiguous()
+
+
+def fused_stem(images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2):
+    """(S, H, W) f32 images in [0, 1], H and W even -> (S, H/2, W/2, 64)
+    int8 NHWC, the pooled conv1b activations. w1a, w1b: `stem_weights`'
+    layout; input_scale, m1, m2: () f32; b1_q, b2_q: (64,) f32 quantized
+    biases. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if images.ndim != 3 or images.shape[1] % 2 or images.shape[2] % 2:
+        raise ValueError(f"images must be (S, H, W) with H and W even, got {tuple(images.shape)}")
+    if images.dtype != torch.float32:
+        raise TypeError(f"images must be float32, got {images.dtype}")
+    if w1a.shape != (9, C) or w1a.dtype != torch.int32:
+        raise ValueError(f"w1a must be (9, {C}) int32, got {tuple(w1a.shape)} {w1a.dtype}")
+    if w1b.shape != (9, C // 4, C, 4) or w1b.dtype != torch.int8:
+        raise ValueError(f"w1b must be (9, {C // 4}, {C}, 4) int8, got {tuple(w1b.shape)} {w1b.dtype}")
+    args = (images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2)
+    dev = images.device
+    if any(t.device != dev for t in args):
+        raise ValueError("all inputs must be on one device")
+    if dev.type == "cpu":
+        return fused_stem_plain(*args)
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    images, w1a, w1b = (t.contiguous() for t in (images, w1a, w1b))
+    scalars = [t.to(torch.float32).reshape(()).contiguous() for t in (input_scale, m1, m2)]
+    b1_q, b2_q = (t.to(torch.float32).reshape(C).contiguous() for t in (b1_q, b2_q))
+    s, h, w = images.shape
+    out = torch.empty(s, h // 2, w // 2, C, dtype=torch.int8, device=dev)
+    global launches
+    with torch.cuda.device(dev):
+        err = _build.library().fused_stem(
+            images.data_ptr(), w1a.data_ptr(), w1b.data_ptr(), scalars[0].data_ptr(),
+            b1_q.data_ptr(), scalars[1].data_ptr(), b2_q.data_ptr(), scalars[2].data_ptr(),
+            out.data_ptr(), s, h, w, _build.stream_of(images))
+    _build.check(err, "fused_stem")
+    launches += 1
+    return out

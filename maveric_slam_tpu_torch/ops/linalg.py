@@ -6,6 +6,19 @@ from __future__ import annotations
 import torch
 
 
+def apply_rows(X: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
+    """X @ A^T for row vectors X (..., N, k) and small matrices A (..., m, k),
+    as products and sums in a fixed order: each row's rounding is the same
+    whatever the batch shape. (A matmul's kernel, and with it the rounding,
+    changes with the batch shape; in the ill-conditioned pose refinement
+    that moves a stream's pose by up to 1e-3 between batch sizes.)"""
+    Ab = A[..., None, :, :]
+    out = X[..., 0, None] * Ab[..., 0]
+    for j in range(1, X.shape[-1]):
+        out = out + X[..., j, None] * Ab[..., j]
+    return out
+
+
 def cholesky_small(A: torch.Tensor) -> torch.Tensor:
     """Unrolled batched Cholesky for small n, pivots sqrt(max(s, 1e-30))."""
     n = A.shape[-1]

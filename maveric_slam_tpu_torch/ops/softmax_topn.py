@@ -2,7 +2,8 @@
 sub-pixel keypoints (port of maveric_slam_tpu/ops/softmax_topn.py).
 
 Grids keep the JAX package's layout: (..., Hc, Wc, 65) int8 logits in,
-(..., Hc, Wc) maps out, cells flattened row-major (r * Wc + c).
+(..., Hc, Wc) maps out, cells flattened row-major (r * Wc + c). Leading axes
+are streams: every function here works on each stream's grid alone.
 """
 
 from __future__ import annotations
@@ -50,11 +51,11 @@ def approx_softmax_grid(semi_q: torch.Tensor, scale, degree: int = 5) -> Softmax
 
 
 class TopN(NamedTuple):
-    cells: torch.Tensor  # (N,) int32 flat cell index (row-major: r*Wc + c)
-    indices: torch.Tensor  # (N,) int32 in-cell argmax channel
-    probs: torch.Tensor  # (N,) float32
-    mask: torch.Tensor  # (N,) bool — True where a feature was selected
-    num_selected: torch.Tensor  # () int32
+    cells: torch.Tensor  # (..., N) int32 flat cell index (row-major: r*Wc + c)
+    indices: torch.Tensor  # (..., N) int32 in-cell argmax channel
+    probs: torch.Tensor  # (..., N) float32
+    mask: torch.Tensor  # (..., N) bool — True where a feature was selected
+    num_selected: torch.Tensor  # (...) int32
 
 
 def top_k(x: torch.Tensor, k: int):
@@ -71,22 +72,25 @@ def top_n_select(
     """Select ~N features by the reference's interpolated-threshold rule
     (compute_top_N, top_N.c:53-134). mode="prob" keeps the N strongest valid
     cells; mode="reference" keeps the first N threshold survivors in the
-    reference's column-major scan order."""
+    reference's column-major scan order. Leading axes of the (..., Hc, Wc)
+    grid are streams: each selects its own N."""
     hc, wc = grid.probs.shape[-2:]
-    probs = grid.probs.reshape(-1)
-    indices = grid.indices.reshape(-1)
-    num_cells = probs.shape[0]
+    lead = grid.probs.shape[:-2]
+    probs = grid.probs.reshape(*lead, hc * wc)
+    indices = grid.indices.reshape(*lead, hc * wc)
+    num_cells = hc * wc
     ids = torch.arange(num_cells, device=probs.device)
     scan_rank = (ids % wc) * hc + ids // wc
 
     valid = (indices != DUSTBIN) & (probs > valid_thresh)
-    num_valid = torch.sum(valid).to(torch.int32)
+    num_valid = torch.sum(valid, dim=-1).to(torch.int32)
 
-    min_prob = torch.amin(torch.where(valid, probs, torch.inf))
-    max_prob = torch.amax(torch.where(valid, probs, -torch.inf))
+    min_prob = torch.amin(torch.where(valid, probs, torch.inf), dim=-1)
+    max_prob = torch.amax(torch.where(valid, probs, -torch.inf), dim=-1)
     split = n / torch.clamp(num_valid.to(torch.float32), min=1.0)
     threshold = max_prob * split + min_prob * (1.0 - split)
-    keep = torch.where(num_valid <= n, valid, valid & (probs >= threshold))
+    keep = torch.where((num_valid <= n)[..., None], valid,
+                       valid & (probs >= threshold[..., None]))
 
     if mode == "prob":
         key = torch.where(valid, probs, 0.0)
@@ -99,10 +103,10 @@ def top_n_select(
     cl = cells.long()
     return TopN(
         cells=cells,
-        indices=indices[cl],
-        probs=torch.where(mask, probs[cl], -1.0),
+        indices=torch.take_along_dim(indices, cl, dim=-1),
+        probs=torch.where(mask, torch.take_along_dim(probs, cl, dim=-1), -1.0),
         mask=mask,
-        num_selected=torch.clamp(torch.sum(selected_pool), max=n).to(torch.int32),
+        num_selected=torch.clamp(torch.sum(selected_pool, dim=-1), max=n).to(torch.int32),
     )
 
 

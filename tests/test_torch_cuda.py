@@ -19,7 +19,7 @@ import torch
 from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops import softmax_topn as st
-from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
 pytestmark = pytest.mark.cuda
 
@@ -141,3 +141,67 @@ def test_int8_net_card_equals_cpu(cuda):
     semi_g, desc_g, _ = sp.superpoint_int8(
         {k: v.to(cuda) for k, v in params.items()}, img[None].to(cuda))
     assert torch.equal(semi_g.cpu(), semi_c) and torch.equal(desc_g.cpu(), desc_c)
+
+
+@pytest.fixture(scope="module")
+def stem_params():
+    return sp.load_params(device="cpu")
+
+
+def _stem_images(shape):
+    """Orbit frames for the 192x640 shapes, seeded noise otherwise."""
+    s, h, w = shape
+    if (h, w) == (192, 640):
+        K = np.array([[800.0, 0, 320.0], [0, 800.0, 96.0], [0, 0, 1]], np.float32)
+        poses = synthetic.orbit_poses(192)
+        return np.stack([synthetic.render_box_room(K, poses[k], h, w) for k in range(s)])
+    return np.random.default_rng(h * w).random(shape, dtype=np.float32)
+
+
+@pytest.mark.parametrize("shape", [(1, 192, 640), (2, 36, 44)])
+def test_stem_bitwise(cuda, stem_params, shape):
+    """The stem kernel against the layered stage 1, bit for bit, at the main
+    path's shape and at one that no 8 x 32 tile divides."""
+    args = [v.to(cuda) for v in sp.stem_args(stem_params)]
+    img = torch.from_numpy(_stem_images(shape)).to(cuda)
+    before = stem.launches
+    got = stem.fused_stem(img, *args)
+    ref = stem.fused_stem_plain(img, *args)
+    torch.cuda.synchronize()
+    assert stem.launches == before + 1
+    assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64) and got.dtype == torch.int8
+    assert torch.equal(got, ref)
+
+
+def test_stem_saturating(cuda, stem_params):
+    """All-0 and all-1 images, where the quantize and requant clips bind."""
+    args = [v.to(cuda) for v in sp.stem_args(stem_params)]
+    img = torch.stack([torch.zeros(36, 44), torch.ones(36, 44)]).to(cuda)
+    assert torch.equal(stem.fused_stem(img, *args), stem.fused_stem_plain(img, *args))
+
+
+def test_batched_detector_and_match(image0, cuda):
+    """(S, C, 65) and (S, N) inputs, one launch each, against the plain
+    versions, per stream: stream 1 is stream 0 with noise added."""
+    semi, desc, scale = image0
+    rng = np.random.default_rng(8)
+    semi2 = np.stack([semi, np.clip(semi + rng.integers(-3, 4, semi.shape), -128, 127)]).astype(np.int8)
+    desc2 = np.stack([desc, np.clip(desc + rng.integers(-20, 21, desc.shape), -128, 127)]).astype(np.int8)
+    s = torch.from_numpy(semi2).to(cuda)
+    sc = torch.tensor(scale, device=cuda)
+    p, i, xy = detector.detector_postproc(s, sc, grid_h=24)
+    pp, ip, xyp = detector.detector_postproc_plain(s, sc, grid_h=24)
+    assert torch.equal(i, ip)
+    torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
+    v = ip != 64
+    torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
+    grid = st.SoftmaxGrid(pp.reshape(2, 24, 80), ip.reshape(2, 24, 80))
+    top = st.top_n_select(grid, n=100, mode="prob")
+    q = torch.take_along_dim(torch.from_numpy(desc2).to(cuda), top.cells.long()[..., None], dim=1)
+    d0 = torch.from_numpy(desc2[::-1].copy()).to(cuda)
+    kw = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4, min_prob=0.1)
+    sm, cm = match.windowed_match(q, d0, pp, ip, top.cells, **kw)
+    sp_, cp = match.windowed_match_plain(q, d0, pp, ip, top.cells, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(cm, cp)
+    torch.testing.assert_close(sm, sp_, rtol=1e-5, atol=0)

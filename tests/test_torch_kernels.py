@@ -217,3 +217,57 @@ class TestSvd3:
         _, sr, _ = (np.asarray(x) for x in pallas_kernels.svd3_pallas(A, interpret=True))
         U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
         _check_svd3(A, U, s, V, sr, 2e-5)
+
+
+class TestStreams:
+    """A leading stream axis: every stream is computed on its own grid. With
+    stream 1 equal to stream 0, both must give the single-stream result
+    (a cell list stacked across streams gets its rows, and a top-N over all
+    streams its cells, from the wrong stream)."""
+
+    def test_detector_rows_per_stream(self, image0):
+        semi, _, scale = image0
+        one = _port_detector(semi, scale)
+        two = detector.detector_postproc(
+            torch.from_numpy(np.stack([semi, semi]).reshape(2, -1, 65)), torch.tensor(scale),
+            grid_h=24)
+        for s in range(2):
+            for got, ref in zip(two, one):
+                np.testing.assert_array_equal(got[s].numpy(), ref)
+
+    @pytest.mark.parametrize("second", ["same", "noisy"])
+    @pytest.mark.parametrize("mode", ["prob", "reference"])
+    def test_top_n_per_stream(self, image0, mode, second):
+        import jax
+
+        semi, _, scale = image0
+        other = semi
+        if second == "noisy":
+            rng = np.random.default_rng(6)
+            other = np.clip(semi + rng.integers(-8, 9, semi.shape), -128, 127).astype(np.int8)
+        semi2 = np.stack([semi, other])
+        jgrid = jst.approx_softmax_grid(semi2, scale)
+        ref = jax.vmap(lambda g: jst.top_n_select(g, n=100, mode=mode))(jgrid)
+        # The same probabilities in both (they agree only to rtol 1e-6, and
+        # near-ties in "prob" mode would order by the last bit).
+        tgrid = tst.SoftmaxGrid(torch.from_numpy(np.array(jgrid.probs)),
+                                torch.from_numpy(np.array(jgrid.indices)))
+        got = tst.top_n_select(tgrid, n=100, mode=mode)
+        for f in ("cells", "mask", "indices", "num_selected"):
+            np.testing.assert_array_equal(getattr(got, f).numpy(), np.asarray(getattr(ref, f)), f)
+        if second == "same":
+            np.testing.assert_array_equal(got.cells[0].numpy(), got.cells[1].numpy())
+
+    def test_match_per_stream(self, image0):
+        semi, desc, scale = image0
+        grid = jst.approx_softmax_grid(semi, scale)
+        top = jst.top_n_select(grid, n=100, mode="prob")
+        args = [desc.reshape(-1, 256), np.array(grid.probs).reshape(-1),
+                np.array(grid.indices).reshape(-1), desc.reshape(-1, 256),
+                np.array(top.cells), np.array(top.indices), np.array(top.mask)]
+        kw = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4, match_threshold=0.8, min_prob=0.1)
+        one = tmatching.windowed_match(*(torch.from_numpy(a) for a in args), **kw)
+        two = tmatching.windowed_match(*(torch.from_numpy(np.stack([a, a])) for a in args), **kw)
+        for got, ref in zip(two, one):
+            for s in range(2):
+                np.testing.assert_array_equal(got[s].numpy(), ref.numpy())

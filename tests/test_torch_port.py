@@ -76,8 +76,8 @@ def test_unported_options_raise():
 
     params = sp.load_params(device="cpu")
     img = torch.zeros(1, 16, 16)
-    for stem in ("auto", "interpret"):
-        with pytest.raises(NotImplementedError):
+    for stem in ("interpret", "on"):  # "interpret" is a JAX-only mode
+        with pytest.raises(ValueError, match="stem"):
             sp.superpoint_int8(params, img, stem=stem)
     with pytest.raises(NotImplementedError):
         extractor.extract_quantized(
@@ -86,12 +86,22 @@ def test_unported_options_raise():
 
 
 def test_kernel_wrappers_validate_inputs():
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
     with pytest.raises(TypeError):
         detector.detector_postproc(torch.zeros(80, 65), torch.tensor(1.0))
     with pytest.raises(ValueError):
         detector.detector_postproc(torch.zeros(81, 65, dtype=torch.int8), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="grid"):
+        detector.detector_postproc(torch.zeros(2, 160, 65, dtype=torch.int8), torch.tensor(1.0),
+                                   grid_w=80, grid_h=3)
+    w1a, w1b = stem.stem_weights(torch.zeros(64, 1, 3, 3, dtype=torch.int8),
+                                 torch.zeros(64, 64, 3, 3, dtype=torch.int8))
+    consts = (torch.tensor(1.0), torch.zeros(64), torch.tensor(1.0), torch.zeros(64), torch.tensor(1.0))
+    with pytest.raises(ValueError, match="even"):
+        stem.fused_stem(torch.zeros(1, 8, 7), w1a, w1b, *consts)
+    with pytest.raises(ValueError, match="w1b"):
+        stem.fused_stem(torch.zeros(1, 8, 8), w1a, w1b.reshape(9, 64, 64), *consts)
     with pytest.raises(ValueError):
         match.windowed_match(
             torch.zeros(3, 128, dtype=torch.int8), torch.zeros(4, 256, dtype=torch.int8),
