@@ -6,13 +6,16 @@ NVIDIA GPU.
 
 Phases, in order; any failure raises and exits non-zero:
   1. build the five CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
-     all sources at once) and print the build time and ptxas's resource lines;
+     all sources at once), print the build time and ptxas's resource lines,
+     and check that the stem's SASS holds tensor-core (IMMA) instructions;
   2. hold each kernel against its plain PyTorch version on the card, on
      inputs taken from the tracking step at 192x640 (stem bitwise at
-     (1, 192, 640), (16, 192, 640), (2, 36, 44) and on all-0/all-1 images;
-     detector C=1920 and at S=16 per stream; match N=100 against C=1920 and
-     at S=16 per stream; nullspace n=9 at B=256/64/3 and n=4 at B=100; svd3
-     at B=256/64/1 plus degenerate matrices), at the bars of ROADMAP.md;
+     (1, 192, 640), (16, 192, 640), (2, 36, 44), (1, 6, 10) and on all-0/all-1
+     images; detector C=1920 and at S=16 per stream; match N=100 against
+     C=1920 and at S=16 per stream; nullspace n=9 at B=256/64/3, at the
+     batched step's B=4096/1024/48 and on zero and rank-8 matrices, n=4 at
+     B=100; svd3 at B=256/64/1 plus degenerate matrices), at the bars of
+     ROADMAP.md;
   3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
      every launch count set to 0 just before and read just after; check the
      counts, the step statistics and the poses against the exact ground truth;
@@ -23,10 +26,12 @@ Phases, in order; any failure raises and exits non-zero:
      its own launch counts, and hold them against single-stream `Tracker`
      runs on the same frames and noise;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
-     where there is one (never used by the port) with CUDA events, each
-     layer of the step alone with the host clock, the batched step and the
-     chunked tracker;
-  7. then, under torch.profiler, each kernel's own device time, each
+     where there is one (never used by the port) with CUDA events (the stem
+     also at S=16, the nullspace at every shape of step 2), each layer of
+     the step alone with the host clock, the batched step and the chunked
+     tracker;
+  7. then, under torch.profiler, each kernel's own device time (the stem
+     also at S=16, the nullspace at every shape of step 2), each
      layer's device-busy time and launches, and the single and batched
      steps' device-busy shares (last, so that no untraced timing runs after
      a profiler).
@@ -107,6 +112,11 @@ def phase_build():
     for line in _build.build_log.splitlines():
         if "Compiling entry function" in line or "registers" in line or "spill" in line:
             _log("[build]   " + line.strip())
+    code = _build.sass("stem_kernel")
+    counts = {op: code.count(op) for op in ("IMMA", "IDP", "LDSM")}
+    _log(f"[build] stem_kernel SASS: {json.dumps(counts)} (IMMA: conv1b on the int8 tensor cores; "
+         f"IDP: conv1a's dp4a; LDSM: ldmatrix)")
+    _require(counts["IMMA"] > 0, "stem_kernel has no tensor-core (IMMA) instruction")
 
 
 def kernel_inputs(dev, frames, noise, cfg, streams):
@@ -155,6 +165,8 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
     a4 = torch.from_numpy(np.random.default_rng(4).normal(size=(100, 4, 4)).astype(np.float32))
     ata4 = (a4 @ a4.transpose(-1, -2)).to(dev)  # (100, 4, 4), the DLT size
     E = [nullspace.nullspace_plain(a).reshape(-1, 3, 3) for a in (ata_min, ata_lo, ata_refit)]
+    v8 = torch.from_numpy(np.random.default_rng(9).normal(size=(9, 8)).astype(np.float32))
+    null_edge = torch.stack([torch.zeros(9, 9), v8 @ v8.T, 1e3 * (v8 @ v8.T)]).to(dev)
     degenerate = torch.zeros(4, 3, 3)
     degenerate[0, 0, 1], degenerate[0, 1, 0] = 1.0, -1.0
     degenerate[1] = torch.diag(torch.tensor([1.0, 2.0, -3.0]))
@@ -175,6 +187,7 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
         "stem_args": sp.stem_args(params),
         "stem": {"(1, 192, 640) orbit": imgs[:1].contiguous(), "(16, 192, 640) streams": first,
                  "(2, 36, 44) seeded": torch.from_numpy(rng.random((2, 36, 44), dtype=np.float32)).to(dev),
+                 "(1, 6, 10) under one tile": torch.from_numpy(rng.random((1, 6, 10), dtype=np.float32)).to(dev),
                  "(2, 192, 640) all 0 / all 1": torch.stack([torch.zeros(H, W), torch.ones(H, W)]).to(dev)},
         "detector16": (semi16[1].contiguous(), sc16["semi_scale"]),
         "match16": (torch.take_along_dim(desc16[1], top16.cells.long()[..., None], dim=1),
@@ -184,6 +197,10 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
         "match_kw": dict(grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
                          radius=mc.window_radius, min_prob=mc.min_prob),
         "nullspace": [ata_min, ata_lo, ata_refit, ata4],
+        # The batched step's calls at S = 16 (B = 4096, 1024, 48): the single
+        # step's matrices for every stream.
+        "nullspace16": [a.expand(s, *a.shape).contiguous() for a in (ata_min, ata_lo, ata_refit)],
+        "nullspace_edge": [null_edge],
         "svd3": [E[0], E[1], E[2][:1], degenerate.to(dev)],
     }
 
@@ -239,7 +256,7 @@ def phase_kernels(inp):
          f"{int((sp_ > 0.64).sum())} above 0.8^2, max |dscore| {errs['windowed_match']:.3g}")
 
     errs["nullspace_inverse_iteration"] = 0.0
-    for a in inp["nullspace"]:
+    for a in inp["nullspace"] + inp["nullspace16"] + inp["nullspace_edge"]:
         got, ref = nullspace.nullspace_inverse_iteration(a), nullspace.nullspace_plain(a)
         d = (got * torch.sign(torch.sum(ref * got, -1, keepdim=True)) - ref).abs().max()
         _require(float(d) <= 1e-3, f"nullspace {tuple(a.shape)}: {float(d)}")
@@ -656,7 +673,7 @@ def phase_timing(inp, launches, errs):
     _log(f"[timing] detector_postproc (S=16 C={det16[0].shape[1]}): call "
          f"{_event_ms(lambda: detector.detector_postproc(*det16), 200):.4f} ms; windowed_match "
          f"(S=16 N={m16[0].shape[1]}): call {_event_ms(lambda: match.windowed_match(*m16, **kw), 200):.4f} ms")
-    for a in inp["nullspace"][1:] + inp["svd3"][1:3]:
+    for a in inp["nullspace"][1:] + inp["nullspace16"] + inp["svd3"][1:3]:
         fn = (lambda a=a: svd3.svd3(a)) if a.shape[-1] == 3 else (lambda a=a: nullspace.nullspace_inverse_iteration(a))
         _log(f"[timing] {'svd3' if a.shape[-1] == 3 else 'nullspace'} {tuple(a.shape)}: "
              f"call {_event_ms(fn, 500):.4f} ms")
@@ -696,11 +713,14 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     kernel's own device time, the layered stage 1's device time beside the
     stem's, each layer's device-busy time and launches per call, and the
     single and batched steps' device-busy shares and heaviest kernels."""
-    from maveric_slam_tpu_torch.ops.kernels import stem
+    from maveric_slam_tpu_torch.ops.kernels import nullspace, stem
 
     for row, k in zip(rows, spec):
         row["device_ms"] = _device_ms(k["kern"], k["names"])
         _log(f"[traced] {row['name']}: device {row['device_ms']} ms/launch")
+    for a in inp["nullspace"][1:] + inp["nullspace16"]:
+        dev_ms = _device_ms(lambda a=a: nullspace.nullspace_inverse_iteration(a), ("nullspace_kernel",))
+        _log(f"[traced] nullspace {tuple(a.shape)}: device {dev_ms} ms/launch")
     for label in ("(1, 192, 640) orbit", "(16, 192, 640) streams"):
         img = inp["stem"][label]
         kern = _device_ms(lambda: stem.fused_stem(img, *inp["stem_args"]), ("stem_kernel",), 20)

@@ -12,7 +12,8 @@ contraction of a multiply and an add into an FMA: the detector's Taylor
 exps tie exactly across channels, and a contracted product moves the
 argmax (the reason the TPU kernel diverged on 85 of 1920 cells,
 maveric_slam_tpu/ops/pallas_kernels.py:57-61). `-Xptxas -v` leaves each
-kernel's registers, spills and shared memory in `build_log`.
+kernel's registers, spills and shared memory in `build_log`; `sass` shows
+what was compiled (cuobjdump, beside nvcc).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -113,6 +115,15 @@ def library() -> ctypes.CDLL:
             f.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def sass(kernel: str) -> str:
+    """The SASS of the built library's functions whose (mangled) names
+    contain `kernel`."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    res = subprocess.run([tool, "-sass", str(build())], capture_output=True, text=True, check=True)
+    parts = re.split(r"\n\s*Function : ", res.stdout)[1:]
+    return "\n".join(p for p in parts if kernel in p.split("\n", 1)[0])
 
 
 def check(err: int, kernel: str) -> None:

@@ -15,13 +15,31 @@ launches = 0  # kernel launches since the last reset (see ops.kernels)
 C = 64  # channels of conv1a and conv1b
 
 
+# stem_weights' w1b: OIHW split as o = 16q + 8jj + g, i = 32h + 16r + 4tig + e,
+# then ordered [u, v, h | q | g, tig | jj, r, e] = [k-step][n-pair][lane][16 bytes].
+_W1B_SPLIT = (4, 2, 8, 2, 2, 4, 4, 3, 3)  # q, jj, g, h, r, tig, e, u, v
+_W1B_ORDER = (7, 8, 3, 0, 2, 5, 1, 4, 6)
+_W1B_SHAPE = (18, 4, 32, 16)
+
+
 def stem_weights(w1a_oihw: torch.Tensor, w1b_oihw: torch.Tensor):
-    """The kernel's weight layout, made once when the params are loaded:
-    w1a (9, 64) int32 [tap][out] and w1b (9, 16, 64, 4) int8
-    [tap][in / 4][out][in % 4], tap = 3 * row + col, from OIHW int8."""
+    """The kernel's weight layout, made once when the params are loaded,
+    from OIHW int8: w1a (9, 64) int32 [tap][out], tap = 3 * row + col; w1b
+    (18, 4, 32, 16) int8 in the B-fragment order of mma.m16n8k32: k-step
+    ks = 2 * tap + h covers input channels 32h .. 32h + 31 of one tap; lane
+    (g, tig) = 4g + tig holds, for n-tiles j = 2q + jj (output channel
+    8j + g), the words {b0, b1} of input channels 32h + 16r + 4tig + e,
+    r = 0, 1, e = 0..3, at bytes 8jj + 4r + e."""
     w1a = w1a_oihw.reshape(C, 9).T.to(torch.int32).contiguous()
-    w1b = w1b_oihw.permute(2, 3, 1, 0).reshape(9, C // 4, 4, C).transpose(2, 3).contiguous()
+    w1b = w1b_oihw.reshape(_W1B_SPLIT).permute(_W1B_ORDER).reshape(_W1B_SHAPE).contiguous()
     return w1a, w1b
+
+
+def w1b_oihw(w1b: torch.Tensor) -> torch.Tensor:
+    """`stem_weights`' w1b back to OIHW (64, 64, 3, 3)."""
+    split = [_W1B_SPLIT[k] for k in _W1B_ORDER]
+    inverse = [_W1B_ORDER.index(k) for k in range(len(_W1B_ORDER))]
+    return w1b.reshape(split).permute(inverse).reshape(C, C, 3, 3)
 
 
 def _requant(acc, bias_q, m):
@@ -33,7 +51,7 @@ def fused_stem_plain(images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2):
     one f32 matmul (exact on these integers, TF32 off) with requant, then a
     2x2 max-pool. Same arguments and result as `fused_stem`."""
     wq1a = w1a.T.to(torch.float32)  # (64, 9): the (in, row, col) im2col order
-    wq1b = w1b.permute(2, 1, 3, 0).reshape(C, 9 * C).to(torch.float32)
+    wq1b = w1b_oihw(w1b).reshape(C, 9 * C).to(torch.float32)
     s, h, w = images.shape
     x = torch.clamp(torch.round(images[:, None] / input_scale), -128, 127)
     x = _requant((wq1a @ F.unfold(x, 3, padding=1)).reshape(s, C, h, w), b1_q, m1)
@@ -53,8 +71,8 @@ def fused_stem(images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2):
         raise TypeError(f"images must be float32, got {images.dtype}")
     if w1a.shape != (9, C) or w1a.dtype != torch.int32:
         raise ValueError(f"w1a must be (9, {C}) int32, got {tuple(w1a.shape)} {w1a.dtype}")
-    if w1b.shape != (9, C // 4, C, 4) or w1b.dtype != torch.int8:
-        raise ValueError(f"w1b must be (9, {C // 4}, {C}, 4) int8, got {tuple(w1b.shape)} {w1b.dtype}")
+    if w1b.shape != _W1B_SHAPE or w1b.dtype != torch.int8:
+        raise ValueError(f"w1b must be {_W1B_SHAPE} int8, got {tuple(w1b.shape)} {w1b.dtype}")
     args = (images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2)
     dev = images.device
     if any(t.device != dev for t in args):
@@ -64,6 +82,8 @@ def fused_stem(images, w1a, w1b, input_scale, b1_q, m1, b2_q, m2):
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     images, w1a, w1b = (t.contiguous() for t in (images, w1a, w1b))
+    if w1b.data_ptr() % 16:
+        raise ValueError("w1b must be 16-byte aligned (the kernel reads it as 16-byte vectors)")
     scalars = [t.to(torch.float32).reshape(()).contiguous() for t in (input_scale, m1, m2)]
     b1_q, b2_q = (t.to(torch.float32).reshape(C).contiguous() for t in (b1_q, b2_q))
     s, h, w = images.shape

@@ -19,7 +19,7 @@ import torch
 from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops import softmax_topn as st
-from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
+from maveric_slam_tpu_torch.ops.kernels import _build, detector, match, nullspace, stem, svd3
 
 pytestmark = pytest.mark.cuda
 
@@ -96,15 +96,34 @@ def test_match_empty_window(cuda):
     assert s.tolist() == [-1.0, -1.0] and c.tolist() == [0, 0]
 
 
-@pytest.mark.parametrize("shape", [(256, 9, 9), (64, 9, 9), (3, 9, 9), (100, 4, 4)])
-def test_nullspace(cuda, shape):
-    A = np.random.default_rng(2).normal(size=shape).astype(np.float32)
-    A = torch.from_numpy(np.einsum("...ij,...kj->...ik", A, A)).to(cuda)
+def _check_nullspace(A):
     got = nullspace.nullspace_inverse_iteration(A)
     ref = nullspace.nullspace_plain(A)
     torch.cuda.synchronize()
+    assert got.shape == A.shape[:-1]
     s = torch.sign(torch.sum(ref * got, dim=-1, keepdim=True))
     torch.testing.assert_close(got * s, ref, rtol=0, atol=1e-3)
+
+
+@pytest.mark.parametrize("shape", [(256, 9, 9), (64, 9, 9), (3, 9, 9), (100, 4, 4),
+                                   (16, 256, 9, 9), (16, 3, 9, 9), (16, 64, 4, 4)])
+def test_nullspace(cuda, shape):
+    """The main path's shapes, the batched step's (S = 16) and n = 4."""
+    A = np.random.default_rng(2).normal(size=shape).astype(np.float32)
+    _check_nullspace(torch.from_numpy(np.einsum("...ij,...kj->...ik", A, A)).to(cuda))
+
+
+@pytest.mark.parametrize("n", [9, 4])
+def test_nullspace_degenerate(cuda, n):
+    """A zero matrix (both versions give the zero vector: the first solve's
+    norm overflows) and rank-deficient ones of rank n - 1 (the 8-point
+    design of 8 points), at two scales. Rank n - 2 and lower is outside the
+    contract: its null space is not one direction, and for n = 9 the plain
+    version itself returns NaN (the trace shift is below the f32 rounding
+    of the Schur complement)."""
+    v = np.random.default_rng(n).normal(size=(n, n - 1)).astype(np.float32)
+    A = np.stack([np.zeros((n, n), np.float32), v @ v.T, 1e3 * (v @ v.T)])
+    _check_nullspace(torch.from_numpy(A).to(cuda))
 
 
 def _degenerate_3x3():
@@ -158,10 +177,11 @@ def _stem_images(shape):
     return np.random.default_rng(h * w).random(shape, dtype=np.float32)
 
 
-@pytest.mark.parametrize("shape", [(1, 192, 640), (2, 36, 44)])
+@pytest.mark.parametrize("shape", [(1, 192, 640), (2, 36, 44), (16, 192, 640), (1, 6, 10)])
 def test_stem_bitwise(cuda, stem_params, shape):
     """The stem kernel against the layered stage 1, bit for bit, at the main
-    path's shape and at one that no 8 x 32 tile divides."""
+    path's shape, the batched step's (16 streams), one that no 8 x 32 tile
+    divides, and one smaller than a tile."""
     args = [v.to(cuda) for v in sp.stem_args(stem_params)]
     img = torch.from_numpy(_stem_images(shape)).to(cuda)
     before = stem.launches
@@ -171,6 +191,14 @@ def test_stem_bitwise(cuda, stem_params, shape):
     assert stem.launches == before + 1
     assert got.shape == (shape[0], shape[1] // 2, shape[2] // 2, 64) and got.dtype == torch.int8
     assert torch.equal(got, ref)
+
+
+def test_stem_kernel_on_tensor_cores(cuda):
+    """conv1b runs on the int8 tensor cores: the built stem_kernel's SASS
+    holds IMMA (mma.sync) instructions."""
+    code = _build.sass("stem_kernel")
+    assert code, "stem_kernel not found in the built library"
+    assert "IMMA" in code
 
 
 def test_stem_saturating(cuda, stem_params):

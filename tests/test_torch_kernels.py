@@ -176,6 +176,15 @@ class TestNullspace:
         s = np.sign(np.sum(ref * got, axis=-1, keepdims=True))
         np.testing.assert_allclose(got * s, ref, atol=1e-4)
 
+    def test_matches_pallas_interpret_stream_batched(self):
+        """The batched step's stream axis: (S, B, 9, 9) with S = 2."""
+        A = _psd((2, 256, 9, 9), 3)
+        ref = np.asarray(pallas_kernels.nullspace_inverse_iteration(A, interpret=True))
+        got = nullspace.nullspace_inverse_iteration(torch.from_numpy(A)).numpy()
+        assert got.shape == (2, 256, 9)
+        s = np.sign(np.sum(ref * got, axis=-1, keepdims=True))
+        np.testing.assert_allclose(got * s, ref, atol=1e-4)
+
 
 def _svd3_cases():
     rng = np.random.default_rng(2)

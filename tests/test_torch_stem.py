@@ -84,11 +84,21 @@ def test_odd_width_takes_layered_path(frames, params):
 
 
 def test_stem_weights_layout(params):
-    """The kernel's packed layout holds w1b[o][i][u][v] at
-    [3u + v][i // 4][o][i % 4], made once at load time."""
+    """The kernel's packed w1b, read back by the B-fragment rule of
+    mma.m16n8k32: at [2 * (3u + v) + h][q][4g + tig][8jj + 4r + e] sits
+    w1b[o][i][u][v] with o = 8 * (2q + jj) + g and i = 32h + 16r + 4tig + e.
+    Unpacked that way, and by `w1b_oihw`, it is OIHW again exactly."""
     _, tp = params
-    w = tp["conv1b_w"]
-    wk = tp["stem_w1b"]
-    o, i, u, v = 5, 37, 2, 1
-    assert wk[3 * u + v, i // 4, o, i % 4] == w[o, i, u, v]
+    w = tp["conv1b_w"].numpy()
+    wk = tp["stem_w1b"].numpy()
+    assert wk.shape == (18, 4, 32, 16) and wk.dtype == np.int8
+    ks, q, lane, byte = np.indices(wk.shape)
+    tap, h = ks // 2, ks % 2
+    g, tig = lane // 4, lane % 4
+    jj, r, e = byte // 8, (byte // 4) % 2, byte % 4
+    unpacked = np.full_like(w, -1)
+    unpacked[8 * (2 * q + jj) + g, 32 * h + 16 * r + 4 * tig + e, tap // 3, tap % 3] = wk
+    np.testing.assert_array_equal(unpacked, w)
+    assert torch.equal(stem.w1b_oihw(tp["stem_w1b"]), tp["conv1b_w"])
+    u, v = 2, 1
     assert torch.equal(tp["stem_w1a"][3 * u + v], tp["conv1a_w"][:, 0, u, v].to(torch.int32))
