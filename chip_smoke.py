@@ -12,10 +12,14 @@ Phases, in order; any failure raises and exits non-zero:
      inputs taken from the tracking step at 192x640 (stem bitwise at
      (1, 192, 640), (16, 192, 640), (2, 36, 44), (1, 6, 10) and on all-0/all-1
      images; detector C=1920 and at S=16 per stream; match N=100 against
-     C=1920 and at S=16 per stream; nullspace n=9 at B=256/64/3, at the
-     batched step's B=4096/1024/48 and on zero and rank-8 matrices, n=4 at
-     B=100; svd3 at B=256/64/1 plus degenerate matrices), at the bars of
-     ROADMAP.md;
+     C=1920 and at S=16 per stream, cells equal and scores bitwise, with
+     each stream alone equal to its row, plus ties, windows clipped at the
+     four grid edges by a shift and signed=False; nullspace n=9 at
+     B=256/64/3, at the batched step's B=4096/1024/48 and on zero and
+     rank-8 matrices, n=4 at B=100; svd3 at B=256/64/1, at the batched
+     step's B=4096/1024/16, on degenerate matrices, repeated singular values
+     and scales 1e-4 and 1e4, each matrix bitwise the same alone as in its
+     batch), at the bars of ROADMAP.md;
   3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
      every launch count set to 0 just before and read just after; check the
      counts, the step statistics and the poses against the exact ground truth;
@@ -26,15 +30,17 @@ Phases, in order; any failure raises and exits non-zero:
      its own launch counts, and hold them against single-stream `Tracker`
      runs on the same frames and noise;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
-     where there is one (never used by the port) with CUDA events (the stem
-     also at S=16, the nullspace at every shape of step 2), each layer of
-     the step alone with the host clock, the batched step and the chunked
-     tracker;
-  7. then, under torch.profiler, each kernel's own device time (the stem
-     also at S=16, the nullspace at every shape of step 2), each
-     layer's device-busy time and launches, and the single and batched
-     steps' device-busy shares (last, so that no untraced timing runs after
-     a profiler).
+     where there is one (never used by the port) with CUDA events (the stem,
+     detector and matcher also at S=16, the nullspace and svd3 at every
+     main-path shape of step 2, with the plain versions and
+     torch.linalg.eigh / torch.linalg.svd at the svd3 and batched
+     nullspace shapes), each layer of the step alone with the host
+     clock, the batched step and the chunked tracker;
+  7. then, under torch.profiler, each kernel's own device time (the stem,
+     detector and matcher also at S=16, the nullspace and svd3 at every
+     main-path shape of step 2), each layer's device-busy time and
+     launches, and the single and batched steps' device-busy shares (last,
+     so that no untraced timing runs after a profiler).
 The last three lines are the card's name and power limit, a JSON object of
 per-kernel numbers, and `{"ok": true, "device": {...}}`.
 
@@ -167,10 +173,14 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
     E = [nullspace.nullspace_plain(a).reshape(-1, 3, 3) for a in (ata_min, ata_lo, ata_refit)]
     v8 = torch.from_numpy(np.random.default_rng(9).normal(size=(9, 8)).astype(np.float32))
     null_edge = torch.stack([torch.zeros(9, 9), v8 @ v8.T, 1e3 * (v8 @ v8.T)]).to(dev)
-    degenerate = torch.zeros(4, 3, 3)
+    # Rank-2 essential-like, negative determinant, rank-1, zero, and
+    # repeated singular values: I, diag(2, 2, 1), diag(3, 1, 1).
+    degenerate = torch.zeros(7, 3, 3)
     degenerate[0, 0, 1], degenerate[0, 1, 0] = 1.0, -1.0
     degenerate[1] = torch.diag(torch.tensor([1.0, 2.0, -3.0]))
     degenerate[2] = torch.outer(torch.tensor([1.0, 2.0, 3.0]), torch.tensor([0.5, -1.0, 2.0]))
+    for k, diag in enumerate(([1.0, 1.0, 1.0], [2.0, 2.0, 1.0], [3.0, 1.0, 1.0])):
+        degenerate[4 + k] = torch.diag(torch.tensor(diag))
 
     s = len(streams)
     first = torch.from_numpy(np.stack([f[0] for f in streams])).to(dev)
@@ -201,8 +211,39 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
         # step's matrices for every stream.
         "nullspace16": [a.expand(s, *a.shape).contiguous() for a in (ata_min, ata_lo, ata_refit)],
         "nullspace_edge": [null_edge],
-        "svd3": [E[0], E[1], E[2][:1], degenerate.to(dev)],
+        "svd3": [E[0], E[1], E[2][:1], degenerate.to(dev), 1e-4 * E[0], 1e4 * E[0]],
+        # The batched step's calls at S = 16 (B = 4096, 1024, 16).
+        "svd3_16": [e.expand(s, *e.shape).contiguous() for e in (E[0], E[1], E[2][:1])],
     }
+
+
+def match_cases(q, d0, pr0, ix0, cells, kw):
+    """[(label, args, kw, lower)]: the matcher's contract at its corners, on
+    the main path's inputs: "tie" (the first 3 queries' own descriptors
+    copied to two cells of their windows, `lower` the lower of each pair:
+    the best cell is no higher, at score 1), "edges shift
+    (sx, sy)" (queries at the grid's corners, edge midpoints and centre,
+    windows shifted so that they clip on every side, and with (-6, 0) leave
+    the grid at the left edge: (-1, cell 0)), "unsigned" (signed=False)."""
+    gh, gw = kw["grid_h"], kw["grid_w"]
+    cases = []
+    d_tie, p_tie, i_tie = d0.clone(), pr0.clone(), ix0.clone()
+    lower = []
+    for k in range(3):
+        r, c = divmod(int(cells[k]), gw)
+        r, c = min(max(r, 2), gh - 3), min(max(c, 2), gw - 3)  # both cells inside the window
+        a, b = (r - 2) * gw + c + 1, r * gw + c - 2
+        d_tie[[a, b]] = q[k]
+        p_tie[[a, b]], i_tie[[a, b]] = 1.0, 0
+        lower.append(min(a, b))
+    cases.append(("tie", (q[:3], d_tie, p_tie, i_tie, cells[:3]), dict(kw, shift=(0, 0)), lower))
+    edge = torch.tensor([r * gw + c for r in (0, gh // 2, gh - 1) for c in (0, gw // 2, gw - 1)],
+                        dtype=torch.int32, device=q.device)
+    for shift in ((3, -2), (-3, 2), (-6, 0)):
+        cases.append((f"edges shift {shift}", (d0[edge.long()], d0, pr0, ix0, edge),
+                      dict(kw, shift=shift), None))
+    cases.append(("unsigned", (q, d0, pr0, ix0, cells), dict(kw, signed=False), None))
+    return cases
 
 
 def phase_kernels(inp):
@@ -233,9 +274,12 @@ def phase_kernels(inp):
     sp16, cp16 = match.windowed_match_plain(*inp["match16"], **inp["match_kw"])
     for k in range(s16.shape[0]):
         _require(torch.equal(c16[k], cp16[k]), f"batched match stream {k}: best cells differ")
-        torch.testing.assert_close(s16[k], sp16[k], rtol=1e-5, atol=0)
-    _log(f"[kernels] match S={s16.shape[0]} N={s16.shape[1]} (one launch): cells equal per stream, "
-         f"max |dscore| {float((s16 - sp16).abs().max()):.3g}")
+        _require(torch.equal(s16[k], sp16[k]), f"batched match stream {k}: scores not bitwise equal")
+        alone = match.windowed_match(*(a[k] for a in inp["match16"]), **inp["match_kw"])
+        _require(torch.equal(alone[0], s16[k]) and torch.equal(alone[1], c16[k]),
+                 f"match stream {k} alone differs from its row of the S=16 call")
+    _log(f"[kernels] match S={s16.shape[0]} N={s16.shape[1]} (one launch): cells equal and scores "
+         f"bitwise equal per stream; each stream alone equals its row")
 
     p, i, xy = detector.detector_postproc(*inp["detector"])
     pp, ip, xyp = detector.detector_postproc_plain(*inp["detector"])
@@ -250,10 +294,19 @@ def phase_kernels(inp):
     s, c = match.windowed_match(*inp["match"], **inp["match_kw"])
     sp_, cp = match.windowed_match_plain(*inp["match"], **inp["match_kw"])
     _require(torch.equal(c, cp), "match: best cells differ")
-    torch.testing.assert_close(s, sp_, rtol=1e-5, atol=0)
+    _require(torch.equal(s, sp_), "match: scores not bitwise equal")
     errs["windowed_match"] = float((s - sp_).abs().max())
-    _log(f"[kernels] match N={s.shape[0]} C={inp['match'][1].shape[0]}: cells equal, "
-         f"{int((sp_ > 0.64).sum())} above 0.8^2, max |dscore| {errs['windowed_match']:.3g}")
+    _log(f"[kernels] match N={s.shape[0]} C={inp['match'][1].shape[0]}: cells equal, scores bitwise "
+         f"equal, {int((sp_ > 0.64).sum())} above 0.8^2")
+    for label, args, kw, lower in match_cases(*inp["match"], inp["match_kw"]):
+        s, c = match.windowed_match(*args, **kw)
+        sp_, cp = match.windowed_match_plain(*args, **kw)
+        _require(torch.equal(c, cp) and torch.equal(s, sp_), f"match {label}: differs from plain")
+        _require(lower is None or (s.tolist() == [1.0] * len(lower)
+                                   and all(x <= y for x, y in zip(c.tolist(), lower))),
+                 f"match {label}: {s.tolist()} at {c.tolist()}, expected 1.0 at or below {lower}")
+        _log(f"[kernels] match {label}: cells equal, scores bitwise equal; "
+             f"{int((s == -1).sum())} of {s.shape[0]} queries without a usable cell")
 
     errs["nullspace_inverse_iteration"] = 0.0
     for a in inp["nullspace"] + inp["nullspace16"] + inp["nullspace_edge"]:
@@ -264,7 +317,7 @@ def phase_kernels(inp):
         _log(f"[kernels] nullspace {tuple(a.shape)}: sign-aligned max |dx| {float(d):.3g} (bar 1e-3)")
 
     errs["svd3"] = 0.0
-    for a in inp["svd3"]:
+    for a in inp["svd3"] + inp["svd3_16"]:
         U, s3, V = svd3.svd3(a)
         _, s3p, _ = svd3.svd3_plain(a)
         m = max(1.0, float(a.abs().max()))
@@ -276,6 +329,16 @@ def phase_kernels(inp):
         errs["svd3"] = max(errs["svd3"], ds)
         _log(f"[kernels] svd3 {tuple(a.shape)}: max |ds| {ds:.3g}, recon {recon:.3g}, "
              f"|det-1| {ddet:.3g} (bars 2e-4, 1e-3, 1e-3 x max|A|={m:.3g})")
+    # A matrix's result does not depend on its batch: alone, in the single
+    # step's batch of 256 and in the batched step's 4096 (16 copies).
+    E, E16 = inp["svd3"][0], inp["svd3_16"][0]
+    full, batched = svd3.svd3(E), svd3.svd3(E16)
+    for k in (0, 1, 31, 32, 100, E.shape[0] - 1):
+        for a, f, b in zip(svd3.svd3(E[k:k + 1]), full, batched):
+            _require(torch.equal(a[0], f[k]) and torch.equal(a[0], b[-1, k]),
+                     f"svd3 of matrix {k} alone differs from its row in a batch")
+    _log(f"[kernels] svd3: matrices alone equal their rows of the B={E.shape[0]} and "
+         f"{tuple(E16.shape[:2])} calls bit for bit")
     torch.cuda.synchronize()
     return errs
 
@@ -590,6 +653,34 @@ def _stem_work(s, h, w):
     return bytes_, 2 * s * h * w * 64 * (9 + 576)
 
 
+def _bound(bytes_, ops, rate):
+    """(the least ms the card could take for the work, "bytes" or
+    "operations": whichever of bytes over the memory rate and operations
+    over `rate` is larger)."""
+    t_bytes, t_ops = bytes_ / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def _detector_work(s, c):
+    """(bytes, f32 operations) of the detector on S streams of C cells."""
+    return s * (c * 65 + c * 16) + 4, s * c * (65 * 3 * 4 + 65 + 64 + 9 * 5 + 6)
+
+
+def _match_work(cells, c, kw):
+    """(bytes, int8 operations, window pairs) of the matcher for the query
+    cells ([S,] N) against C cells a stream: every input read once, the
+    outputs written once; the dots and norms of the (query, window cell)
+    pairs these queries visit."""
+    r, gh, gw = kw["radius"], kw["grid_h"], kw["grid_w"]
+    rows = cells.long() // gw + kw["shift"][1]
+    cols = cells.long() % gw + kw["shift"][0]
+    win_r = (torch.clamp(rows + r, max=gh - 1) - torch.clamp(rows - r, min=0) + 1).clamp(min=0)
+    win_c = (torch.clamp(cols + r, max=gw - 1) - torch.clamp(cols - r, min=0) + 1).clamp(min=0)
+    pairs = int((win_r * win_c).sum())
+    nq, s = cells.numel(), cells.numel() // cells.shape[-1]
+    return nq * (256 + 4 + 8) + s * c * (256 + 8), 2 * 256 * (pairs + nq + s * c), pairs
+
+
 def phase_timing(inp, launches, errs):
     from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
@@ -598,12 +689,8 @@ def phase_timing(inp, launches, errs):
     q, d0, pr0, ix0, cells = inp["match"]
     kw = inp["match_kw"]
     n = q.shape[0]
-    r = kw["radius"]
-    rows = cells.long() // kw["grid_w"] + kw["shift"][1]
-    cols = cells.long() % kw["grid_w"] + kw["shift"][0]
-    win_r = (torch.clamp(rows + r, max=kw["grid_h"] - 1) - torch.clamp(rows - r, min=0) + 1).clamp(min=0)
-    win_c = (torch.clamp(cols + r, max=kw["grid_w"] - 1) - torch.clamp(cols - r, min=0) + 1).clamp(min=0)
-    pairs = int((win_r * win_c).sum())  # (query, window cell) pairs this run's queries visit
+    m_bytes, m_ops, pairs = _match_work(cells, c, kw)
+    d_bytes, d_ops = _detector_work(1, c)
     ata = inp["nullspace"][0]
     E = inp["svd3"][0]
     b9, b3 = ata.shape[0], E.shape[0]
@@ -620,14 +707,12 @@ def phase_timing(inp, launches, errs):
         dict(name="detector_postproc", src="detector.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:93",
              kern=lambda: detector.detector_postproc(semi, scale),
              plain=lambda: detector.detector_postproc_plain(semi, scale), lib=None,
-             names=("detector_kernel",), bytes=c * 65 + 4 + c * 16,
-             ops=c * (65 * 3 * 4 + 65 + 64 + 9 * 5 + 6), rate=F32_OPS_PER_S,
+             names=("detector_kernel",), bytes=d_bytes, ops=d_ops, rate=F32_OPS_PER_S,
              shape=f"C={c}"),
         dict(name="windowed_match", src="match.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:173",
              kern=lambda: match.windowed_match(q, d0, pr0, ix0, cells, **kw),
              plain=lambda: match.windowed_match_plain(q, d0, pr0, ix0, cells, **kw), lib=None,
-             names=("match_kernel",), bytes=n * 256 + c * 256 + c * 8 + n * 4 + n * 8,
-             ops=2 * 256 * (pairs + n + c), rate=INT8_OPS_PER_S,
+             names=("match_kernel",), bytes=m_bytes, ops=m_ops, rate=INT8_OPS_PER_S,
              shape=f"N={n} C={c} window pairs={pairs}"),
         dict(name="nullspace_inverse_iteration", src="nullspace.cu",
              replaces="maveric_slam_tpu/ops/pallas_kernels.py:293",
@@ -644,7 +729,7 @@ def phase_timing(inp, launches, errs):
     ]
     out = []
     for k in spec:
-        t_bytes, t_ops = k["bytes"] / HBM_BYTES_PER_S * 1e3, k["ops"] / k["rate"] * 1e3
+        bound, bound_by = _bound(k["bytes"], k["ops"], k["rate"])
         # plain, kernel, kernel, plain: the pairs are compared within one run
         plain1 = _event_ms(k["plain"], 50)
         kern1 = _event_ms(k["kern"], 500)
@@ -656,7 +741,7 @@ def phase_timing(inp, launches, errs):
             "source": f"maveric_slam_tpu_torch/csrc/{k['src']}", "replaces": k["replaces"],
             "launches": launches[k["name"]], "max_abs_err": errs[k["name"]],
             "ms": min(kern1, kern2), "plain_ms": min(plain1, plain2),
-            "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib, "device_ms": None, "shape": k["shape"],
         }
         _log(f"[timing] {k['name']} ({k['shape']}): call {kern1:.4f}/{kern2:.4f} ms, "
@@ -668,15 +753,39 @@ def phase_timing(inp, launches, errs):
     k16 = _event_ms(lambda: stem.fused_stem(img16, *sargs), 50)
     p16 = _event_ms(lambda: stem.fused_stem_plain(img16, *sargs), 5)
     _log(f"[timing] fused_stem (S=16 {H}x{W}): call {k16:.4f} ms, layered stage 1 {p16:.4f} ms, "
-         f"bound {max(b16 / HBM_BYTES_PER_S, o16 / INT8_OPS_PER_S) * 1e3:.2e} ms")
+         f"bound {_bound(b16, o16, INT8_OPS_PER_S)[0]:.2e} ms")
     det16, m16 = inp["detector16"], inp["match16"]
-    _log(f"[timing] detector_postproc (S=16 C={det16[0].shape[1]}): call "
-         f"{_event_ms(lambda: detector.detector_postproc(*det16), 200):.4f} ms; windowed_match "
-         f"(S=16 N={m16[0].shape[1]}): call {_event_ms(lambda: match.windowed_match(*m16, **kw), 200):.4f} ms")
-    for a in inp["nullspace"][1:] + inp["nullspace16"] + inp["svd3"][1:3]:
-        fn = (lambda a=a: svd3.svd3(a)) if a.shape[-1] == 3 else (lambda a=a: nullspace.nullspace_inverse_iteration(a))
-        _log(f"[timing] {'svd3' if a.shape[-1] == 3 else 'nullspace'} {tuple(a.shape)}: "
-             f"call {_event_ms(fn, 500):.4f} ms")
+    s16, c16 = det16[0].shape[0], det16[0].shape[1]
+    db, dops = _detector_work(s16, c16)
+    mb, mops, mpairs = _match_work(m16[4], c16, kw)
+    bound, by = _bound(db, dops, F32_OPS_PER_S)
+    _log(f"[timing] detector_postproc (S={s16} C={c16}): call "
+         f"{_event_ms(lambda: detector.detector_postproc(*det16), 200):.4f} ms, plain "
+         f"{_event_ms(lambda: detector.detector_postproc_plain(*det16), 20):.4f} ms, bound "
+         f"{bound:.2e} ms ({by}: {db} B, {dops} ops)")
+    bound, by = _bound(mb, mops, INT8_OPS_PER_S)
+    _log(f"[timing] windowed_match (S={s16} N={m16[0].shape[1]} window pairs={mpairs}): call "
+         f"{_event_ms(lambda: match.windowed_match(*m16, **kw), 200):.4f} ms, plain "
+         f"{_event_ms(lambda: match.windowed_match_plain(*m16, **kw), 20):.4f} ms, bound "
+         f"{bound:.2e} ms ({by}: {mb} B, {mops} ops)")
+    for a in inp["nullspace"][1:]:
+        _log(f"[timing] nullspace {tuple(a.shape)}: "
+             f"call {_event_ms(lambda a=a: nullspace.nullspace_inverse_iteration(a), 500):.4f} ms")
+    for a in inp["svd3"][1:3] + inp["svd3_16"]:
+        b = a.numel() // 9
+        bound, by = _bound(b * (9 + 9 + 3 + 9) * 4, b * SVD3_OPS, F32_OPS_PER_S)
+        _log(f"[timing] svd3 {tuple(a.shape)}: call {_event_ms(lambda a=a: svd3.svd3(a), 500):.4f} ms, "
+             f"plain {_event_ms(lambda a=a: svd3.svd3_plain(a), 5):.4f} ms, library "
+             f"{_event_ms(lambda a=a: torch.linalg.svd(a), 50):.4f} ms (torch.linalg.svd), bound "
+             f"{bound:.2e} ms ({by})")
+    for a in inp["nullspace16"]:
+        b = a.numel() // 81
+        bound, by = _bound(b * (81 + 9) * 4, b * _nullspace_ops(9), F32_OPS_PER_S)
+        _log(f"[timing] nullspace {tuple(a.shape)}: call "
+             f"{_event_ms(lambda a=a: nullspace.nullspace_inverse_iteration(a), 500):.4f} ms, plain "
+             f"{_event_ms(lambda a=a: nullspace.nullspace_plain(a), 5):.4f} ms, library "
+             f"{_event_ms(lambda a=a: torch.linalg.eigh(a), 50):.4f} ms (torch.linalg.eigh), bound "
+             f"{bound:.2e} ms ({by})")
     return out, spec
 
 
@@ -713,7 +822,7 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     kernel's own device time, the layered stage 1's device time beside the
     stem's, each layer's device-busy time and launches per call, and the
     single and batched steps' device-busy shares and heaviest kernels."""
-    from maveric_slam_tpu_torch.ops.kernels import nullspace, stem
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
     for row, k in zip(rows, spec):
         row["device_ms"] = _device_ms(k["kern"], k["names"])
@@ -721,6 +830,14 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     for a in inp["nullspace"][1:] + inp["nullspace16"]:
         dev_ms = _device_ms(lambda a=a: nullspace.nullspace_inverse_iteration(a), ("nullspace_kernel",))
         _log(f"[traced] nullspace {tuple(a.shape)}: device {dev_ms} ms/launch")
+    for a in inp["svd3"][1:3] + inp["svd3_16"]:
+        dev_ms = _device_ms(lambda a=a: svd3.svd3(a), ("svd3_kernel",))
+        _log(f"[traced] svd3 {tuple(a.shape)}: device {dev_ms} ms/launch")
+    det16, m16 = inp["detector16"], inp["match16"]
+    dev_ms = _device_ms(lambda: detector.detector_postproc(*det16), ("detector_kernel",))
+    _log(f"[traced] detector_postproc (S=16 C={det16[0].shape[1]}): device {dev_ms} ms/launch")
+    dev_ms = _device_ms(lambda: match.windowed_match(*m16, **inp["match_kw"]), ("match_kernel",))
+    _log(f"[traced] windowed_match (S=16 N={m16[0].shape[1]}): device {dev_ms} ms/launch")
     for label in ("(1, 192, 640) orbit", "(16, 192, 640) streams"):
         img = inp["stem"][label]
         kern = _device_ms(lambda: stem.fused_stem(img, *inp["stem_args"]), ("stem_kernel",), 20)

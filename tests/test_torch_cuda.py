@@ -96,6 +96,116 @@ def test_match_empty_window(cuda):
     assert s.tolist() == [-1.0, -1.0] and c.tolist() == [0, 0]
 
 
+def match_edge_cases():
+    """[(label, (desc1_sel, desc0, probs0, indices0, cells1) as numpy, kw)]
+    of the matcher's edge cases on the main path's 24x80 grid, radius 4,
+    with seeded descriptors (about 10% of cells below min_prob, 1/65 dustbins):
+    - "tie": each query's own descriptor at two cells of its window (same
+      row, and two rows apart): the lower cell wins;
+    - "edges shift (sx, sy)": queries at the four corners, the middle of
+      each edge and the centre, the window shifted: clipped on every side,
+      and with shift (-6, 0) empty at the left edge, (-1, cell 0);
+    - "unsigned" / "signed": the negated query at a window cell, which is
+      the best match only with signed=False.
+    Also the inputs of tests/test_torch_kernels.py's cases against the JAX
+    package."""
+    rng = np.random.default_rng(11)
+    gh, gw = 24, 80
+    c = gh * gw
+    desc0 = rng.integers(-127, 128, (c, 256)).astype(np.int8)
+    probs0 = rng.random(c).astype(np.float32)
+    indices0 = rng.integers(0, 65, c).astype(np.int32)
+    kw = dict(grid_h=gh, grid_w=gw, radius=4, min_prob=0.1)
+
+    def cell(r, col):
+        return r * gw + col
+
+    cases = []
+    cells = np.array([cell(10, 31), cell(5, 60), cell(18, 8)], np.int32)
+    q = rng.integers(-127, 128, (3, 256)).astype(np.int8)
+    d0 = desc0.copy()
+    p0, i0 = probs0.copy(), indices0.copy()
+    for k, (a, b) in enumerate([(cell(10, 30), cell(10, 33)), (cell(4, 62), cell(6, 57)),
+                                (cell(16, 5), cell(18, 4))]):
+        d0[[a, b]] = q[k]
+        p0[[a, b]], i0[[a, b]] = 1.0, 0
+    cases.append(("tie", (q, d0, p0, i0, cells), dict(kw, shift=(0, 0))))
+    edge = np.array([cell(r, col) for r in (0, 12, 23) for col in (0, 40, 79)], np.int32)
+    qe = rng.integers(-127, 128, (len(edge), 256)).astype(np.int8)
+    for shift in ((3, -2), (-3, 2), (-6, 0)):
+        cases.append((f"edges shift {shift}", (qe, desc0, probs0, indices0, edge),
+                      dict(kw, shift=shift)))
+    cu = np.array([cell(3, 3), cell(12, 50), cell(20, 77)], np.int32)
+    qu = rng.integers(-127, 128, (3, 256)).astype(np.int8)
+    du, pu, iu = desc0.copy(), probs0.copy(), indices0.copy()
+    for k, at in enumerate((cell(5, 1), cell(12, 52), cell(23, 79))):
+        du[at] = -qu[k]
+        pu[at], iu[at] = 1.0, 0
+    for signed in (False, True):
+        cases.append(("signed" if signed else "unsigned", (qu, du, pu, iu, cu),
+                      dict(kw, shift=(0, 0), signed=signed)))
+    return cases
+
+
+def _check_match(args, kw):
+    """Kernel against plain: equal cells and bitwise-equal scores."""
+    s, c = match.windowed_match(*args, **kw)
+    sp_, cp = match.windowed_match_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(c, cp)
+    assert torch.equal(s, sp_), float((s - sp_).abs().max())
+    return s, c
+
+
+@pytest.mark.parametrize("label", [lab for lab, _, _ in match_edge_cases()])
+def test_match_edge_cases(cuda, label):
+    _, args, kw = next(case for case in match_edge_cases() if case[0] == label)
+    s, c = _check_match([torch.from_numpy(a).to(cuda) for a in args], kw)
+    if label == "tie":  # the lower of the two cells holding the query's descriptor
+        assert c.tolist() == [10 * 80 + 30, 4 * 80 + 62, 16 * 80 + 5] and s.tolist() == [1.0] * 3
+    if label == "edges shift (-6, 0)":  # the left edge's windows are off the grid
+        assert s[[0, 3, 6]].tolist() == [-1.0] * 3 and c[[0, 3, 6]].tolist() == [0] * 3
+    if label == "unsigned":
+        assert s.tolist() == [1.0] * 3
+
+
+def _streams16(image0, cuda):
+    """S = 16 matcher inputs from image0: stream k's previous frame is
+    image0's descriptors with seeded noise k, its queries the top-100 cells
+    of another noisy copy."""
+    semi, desc, scale = image0
+    probs, idx, _ = detector.detector_postproc_plain(torch.from_numpy(semi), torch.tensor(scale))
+    top = st.top_n_select(st.SoftmaxGrid(probs.reshape(24, 80), idx.reshape(24, 80)), n=100, mode="prob")
+    rng = np.random.default_rng(16)
+
+    def noisy(amp):
+        return np.clip(desc.astype(np.int32) + rng.integers(-amp, amp + 1, desc.shape), -128, 127).astype(np.int8)
+
+    d0 = torch.from_numpy(np.stack([noisy(k) for k in range(16)]))
+    q = torch.from_numpy(np.stack([noisy(30) for _ in range(16)]))[:, top.cells.long()]
+    return [t.to(cuda) for t in (q, d0, probs.expand(16, -1).contiguous(),
+                                 idx.expand(16, -1).contiguous(), top.cells.expand(16, -1).contiguous())]
+
+
+MATCH_KW = dict(grid_h=24, grid_w=80, shift=(0, 0), radius=4, min_prob=0.1)
+
+
+def test_match_streams16(image0, cuda):
+    """The batched step's call: 16 streams of 100 queries, one launch."""
+    before = match.launches
+    _check_match(_streams16(image0, cuda), MATCH_KW)
+    assert match.launches == before + 1
+
+
+def test_match_stream_independent(image0, cuda):
+    """Each stream alone gives its row of the S = 16 call, bit for bit."""
+    args = _streams16(image0, cuda)
+    s16, c16 = match.windowed_match(*args, **MATCH_KW)
+    for k in range(16):
+        s, c = match.windowed_match(*(a[k] for a in args), **MATCH_KW)
+        assert torch.equal(s, s16[k]) and torch.equal(c, c16[k]), k
+
+
 def _check_nullspace(A):
     got = nullspace.nullspace_inverse_iteration(A)
     ref = nullspace.nullspace_plain(A)
@@ -136,19 +246,69 @@ def _degenerate_3x3():
     return np.stack([E, neg, r1, np.zeros((3, 3), np.float32)])
 
 
+def svd3_edge_cases():
+    """{label: (..., 3, 3) f32} of the 3x3 SVD's edge cases: repeated
+    singular values, matrices scaled far from 1 (with the degenerate set) and
+    the batched step's (16, 256) batch. Also the inputs of
+    tests/test_torch_kernels.py's cases against the JAX package."""
+    rng = np.random.default_rng(12)
+    base = np.concatenate([_degenerate_3x3(), rng.normal(size=(28, 3, 3))]).astype(np.float32)
+    return {
+        "repeated I, diag(2,2,1), diag(3,1,1)": np.stack(
+            [np.eye(3), np.diag([2.0, 2.0, 1.0]), np.diag([3.0, 1.0, 1.0])]).astype(np.float32),
+        "scaled 1e-4": base * np.float32(1e-4),
+        "scaled 1e4": base * np.float32(1e4),
+        "(16, 256) batch": rng.normal(size=(16, 256, 3, 3)).astype(np.float32),
+    }
+
+
+def _check_svd3(A):
+    """The kernel's bars against the plain version (ROADMAP.md): s within
+    2e-4 max|A|, reconstruction within 1e-3 max|A|, det U = det V = 1 within
+    1e-3."""
+    U, s, V = (x.cpu().numpy() for x in svd3.svd3(torch.from_numpy(A).cuda()))
+    _, sp_, _ = svd3.svd3_plain(torch.from_numpy(A).cuda())
+    assert U.shape == A.shape and s.shape == A.shape[:-1]
+    m = max(1.0, float(np.abs(A).max()))
+    np.testing.assert_allclose(s, sp_.cpu().numpy(), rtol=0, atol=2e-4 * m)
+    recon = np.einsum("...ik,...k,...jk->...ij", U, s, V)
+    np.testing.assert_allclose(recon, A, rtol=0, atol=1e-3 * m)
+    np.testing.assert_allclose(np.linalg.det(U), 1.0, atol=1e-3)
+    np.testing.assert_allclose(np.linalg.det(V), 1.0, atol=1e-3)
+
+
 @pytest.mark.parametrize("batch", [256, 64, 1])
 def test_svd3(cuda, batch):
     A = np.concatenate(
         [_degenerate_3x3(), np.random.default_rng(batch).normal(size=(batch, 3, 3))]
     ).astype(np.float32)
-    U, s, V = (x.cpu().numpy() for x in svd3.svd3(torch.from_numpy(A).to(cuda)))
-    _, sp_, _ = svd3.svd3_plain(torch.from_numpy(A).to(cuda))
-    m = max(1.0, float(np.abs(A).max()))
-    np.testing.assert_allclose(s, sp_.cpu().numpy(), atol=2e-4 * m)
-    recon = np.einsum("...ik,...k,...jk->...ij", U, s, V)
-    np.testing.assert_allclose(recon, A, atol=1e-3 * m)
-    np.testing.assert_allclose(np.linalg.det(U), 1.0, atol=1e-3)
-    np.testing.assert_allclose(np.linalg.det(V), 1.0, atol=1e-3)
+    _check_svd3(A)
+
+
+@pytest.mark.parametrize("label", list(svd3_edge_cases()))
+def test_svd3_edge_cases(cuda, label):
+    _check_svd3(svd3_edge_cases()[label])
+
+
+@pytest.mark.parametrize("batch", [256, 64, 1])
+def test_svd3_streams(cuda, batch):
+    """The batched step's calls at S = 16: (16, 256 | 64 | 1, 3, 3)."""
+    _check_svd3(np.random.default_rng(batch + 16).normal(size=(16, batch, 3, 3)).astype(np.float32))
+
+
+def test_svd3_batch_independent(cuda):
+    """A matrix's result is the same bit for bit alone, in a batch of 256 and
+    at another position of a batch of 4096 (batched and chunked runs rely on
+    it)."""
+    A = torch.from_numpy(np.concatenate(
+        [_degenerate_3x3(), np.random.default_rng(7).normal(size=(252, 3, 3))]).astype(np.float32)).cuda()
+    big = torch.from_numpy(np.random.default_rng(8).normal(size=(4096, 3, 3)).astype(np.float32)).cuda()
+    big[1000:1256] = A
+    full, in_big = svd3.svd3(A), svd3.svd3(big)
+    for k in (0, 1, 2, 3, 31, 32, 33, 100, 255):
+        alone = svd3.svd3(A[k:k + 1])
+        for a, f, b in zip(alone, full, in_big):
+            assert torch.equal(a[0], f[k]) and torch.equal(a[0], b[1000 + k]), k
 
 
 def test_int8_net_card_equals_cpu(cuda):

@@ -1,4 +1,4 @@
-"""The port's four kernels, held against the JAX package on the CPU.
+"""The port's detector, matcher, nullspace and svd3 kernels, held against the JAX package on the CPU.
 
 On the CPU each kernel wrapper runs its plain PyTorch version; these tests
 hold that version against the JAX function it replaces (the jnp path, and
@@ -22,6 +22,7 @@ from maveric_slam_tpu.ops import svd3 as jsvd3
 from maveric_slam_tpu_torch.ops import matching as tmatching
 from maveric_slam_tpu_torch.ops import softmax_topn as tst
 from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
+from test_torch_cuda import match_edge_cases, svd3_edge_cases
 
 REFCACHE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -155,6 +156,41 @@ class TestMatcher:
         assert s.tolist() == [-1.0, -1.0] and c.tolist() == [0, 0]
 
 
+@pytest.mark.parametrize("label", [lab for lab, _, _ in match_edge_cases()])
+class TestMatcherEdgeCases:
+    """The contract's corners (tests/test_torch_cuda.py::match_edge_cases:
+    ties, windows clipped or emptied at the four grid edges by a shift,
+    signed=False) against the JAX package. Bars as TestWindowedMatch: cells
+    exact, scores rtol 1e-5."""
+
+    @staticmethod
+    def _case(label):
+        _, args, kw = next(case for case in match_edge_cases() if case[0] == label)
+        s, c = match.windowed_match(*(torch.from_numpy(a) for a in args), **kw)
+        return args, kw, s.numpy(), c.numpy()
+
+    def test_matches_jnp_path(self, label):
+        (q, desc0, probs0, idx0, cells1), kw, s, c = self._case(label)
+        desc1 = np.zeros_like(desc0)
+        desc1[cells1] = q
+        n = len(cells1)
+        ref = jmatching.windowed_match(desc0, probs0, idx0, desc1, cells1, np.zeros(n, np.int32),
+                                       np.ones(n, bool), match_threshold=0.0, **kw)
+        np.testing.assert_allclose(s, np.asarray(ref.score), rtol=1e-5)
+        found = np.asarray(ref.mask)  # score > 0: the jnp path reports the cell
+        assert found.sum() >= n // 2
+        np.testing.assert_array_equal(c[found], np.asarray(ref.cell0)[found])
+
+    def test_matches_pallas_interpret(self, label):
+        (q, desc0, probs0, idx0, cells1), kw, s, c = self._case(label)
+        s_ref, c_ref = (np.asarray(a) for a in pallas_kernels.fused_windowed_match(
+            q, desc0, probs0, idx0, cells1, interpret=True, **kw))
+        np.testing.assert_array_equal(c, c_ref)
+        np.testing.assert_allclose(s, s_ref, rtol=1e-5)
+        if label == "tie":  # the lower of the two cells holding the query's descriptor
+            assert c.tolist() == [10 * 80 + 30, 4 * 80 + 62, 16 * 80 + 5]
+
+
 def _psd(shape, seed):
     A = np.random.default_rng(seed).normal(size=shape).astype(np.float32)
     return np.einsum("...ij,...kj->...ik", A, A)
@@ -223,6 +259,22 @@ class TestSvd3:
 
     def test_matches_pallas_interpret(self):
         A = _svd3_cases()[3]
+        _, sr, _ = (np.asarray(x) for x in pallas_kernels.svd3_pallas(A, interpret=True))
+        U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
+        _check_svd3(A, U, s, V, sr, 2e-5)
+
+    @pytest.mark.parametrize("label", list(svd3_edge_cases()))
+    def test_edge_cases_match_jnp_path(self, label):
+        """Repeated singular values, scales 1e-4 and 1e4, a (16, 256) batch
+        (tests/test_torch_cuda.py::svd3_edge_cases)."""
+        A = svd3_edge_cases()[label]
+        _, sr, _ = (np.asarray(x) for x in jsvd3.svd3_ref(jnp.asarray(A)))
+        U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
+        _check_svd3(A, U, s, V, sr, 2e-5)
+
+    @pytest.mark.parametrize("label", list(svd3_edge_cases()))
+    def test_edge_cases_match_pallas_interpret(self, label):
+        A = svd3_edge_cases()[label]
         _, sr, _ = (np.asarray(x) for x in pallas_kernels.svd3_pallas(A, interpret=True))
         U, s, V = (x.numpy() for x in svd3.svd3(torch.from_numpy(A)))
         _check_svd3(A, U, s, V, sr, 2e-5)

@@ -1,11 +1,14 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's stem and nullspace kernels goes, by
-timing copies of their sources with one part taken out.
+"""Where the device time of the port's stem, nullspace, svd3 and match
+kernels goes, by timing copies of their sources with one part taken out.
 
-    python3 tools/torch_kernel_breakdown.py
+    python3 tools/torch_kernel_breakdown.py [--csrc DIR] [stem] [nullspace] [svd3] [match]
 
-Each copy of `maveric_slam_tpu_torch/csrc/{stem,nullspace}.cu` is edited by
-an exact text substitution (the script fails if a pattern is missing),
+With no section named, all four run. `--csrc DIR` reads the kernel sources
+from DIR (for example the `csrc/` of a `git archive` of another commit)
+instead of this checkout's `maveric_slam_tpu_torch/csrc`. Each copy of a
+source is edited by an exact text substitution (the script fails if a
+pattern is missing),
 built with the port's nvcc flags into `build/kernel_breakdown/`, loaded
 with ctypes and timed under torch.profiler on seeded inputs (the copies'
 outputs are timing only, except where stated):
@@ -14,7 +17,18 @@ outputs are timing only, except where stated):
   (its work items write zeros); with one k-step of conv1b's 18; both;
 - nullspace at B = 256 and 4096 (n = 9): the substitution block kBlock =
   1, 3 and 5 (checked bitwise equal to each other); 0, 1 and 10 rounds; and
-  a copy kernel of the same launch shape as the floor.
+  a copy kernel of the same launch shape as the floor;
+- svd3 at B = 256 and 4096: a copy kernel of the same launch shape (9
+  floats in, 21 out a matrix) as the floor; 0, 1 and 6 sweeps; 6 sweeps
+  without the U rebuild (U and s taken from B's columns as they are); where
+  the source has the rcp.approx `recip` helper, its reciprocal as the
+  correctly rounded __frcp_rn (0, 1 and 6 sweeps, with the largest change
+  in s);
+- match at N = 100 and S = 16 x 100 (seeded descriptors, a window of
+  radius 4 around each query, every cell usable): kQueries = 1, 2 and 4
+  queries a block, checked bitwise equal to each other; and as the floor a
+  kernel of the one-query launch shape that reads each query's cell and
+  writes its two outputs.
 
 Prints one line a variant, then the card's name and power limit. Needs a
 card and nvcc; imports nothing of JAX.
@@ -24,6 +38,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import subprocess
 import sys
 
@@ -36,6 +51,7 @@ sys.path.insert(0, ROOT)
 from maveric_slam_tpu_torch.ops.kernels import _build  # noqa: E402
 
 OUT = os.path.join(ROOT, "build", "kernel_breakdown")
+CSRC = str(_build.CSRC)  # the sources to take apart (--csrc)
 P, I = ctypes.c_void_p, ctypes.c_int
 
 CONV1A = "      if (r >= 0 && r < H && c >= 0 && c < W) {\n        const int8_t* xp"
@@ -55,6 +71,81 @@ extern "C" int nullspace_inverse_iteration(const void* a, void* x, int batch, in
   return (int)cudaGetLastError();
 }
 """
+
+
+SVD3_FLOOR = """#include <cuda_runtime.h>
+__global__ void svd3_kernel_floor(const float* __restrict__ a, float* __restrict__ u,
+                                  float* __restrict__ s, float* __restrict__ v, int batch) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  float m[9];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) m[i] = a[b * 9 + i];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    u[b * 9 + i] = m[i];
+    v[b * 9 + i] = m[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i) s[b * 3 + i] = m[4 * i];
+}
+extern "C" int svd3(const void* A, void* U, void* s, void* V, int batch, int sweeps, void* st) {
+  svd3_kernel_floor<<<(batch + THREADS - 1) / THREADS, THREADS, 0, (cudaStream_t)st>>>(
+      (const float*)A, (float*)U, (float*)s, (float*)V, batch);
+  return (int)cudaGetLastError();
+}
+"""
+# svd3's angle reciprocal (MUFU.RCP, ~1 ulp), and the correctly rounded
+# one tried in its place.
+RECIP = """  float r;
+  asm("rcp.approx.f32 %0, %1;" : "=f"(r) : "f"(x));
+  return r;"""
+RECIP_RN = "  return __frcp_rn(x);"
+# The U rebuild of svd3.cu, from its first line to the stores, and what
+# takes its place: U's columns and s straight from B. One pair for each
+# layout of the source (the previous kernel's Mat struct; the plain arrays now).
+SVD3_NO_U = (
+    ("  const float s0 = sqrtf(norm2_col(B, 0));", "  float* U = U_out + (size_t)b * 9;",
+     "  const float s0 = B.m[0][0], s1 = B.m[1][1], s2 = B.m[2][2];\n"
+     "  const float u0[3] = {B.m[0][0], B.m[1][0], B.m[2][0]};\n"
+     "  const float u1[3] = {B.m[0][1], B.m[1][1], B.m[2][1]};\n"
+     "  const float u2[3] = {B.m[0][2], B.m[1][2], B.m[2][2]};\n"),
+    ("  // The U rebuild.", "  // The stores.",
+     "  const float s0 = B[0][0], s1 = B[1][1], s2 = B[2][2];\n"
+     "  const float u0[3] = {B[0][0], B[1][0], B[2][0]};\n"
+     "  const float u1[3] = {B[0][1], B[1][1], B[2][1]};\n"
+     "  const float u2[3] = {B[0][2], B[1][2], B[2][2]};\n"),
+)
+KQUERIES = "constexpr int kQueries = 1;"
+MATCH_FLOOR = """#include <cuda_runtime.h>
+__global__ void match_kernel_floor(const int* __restrict__ cells1, float* __restrict__ score,
+                                   int* __restrict__ best, int n) {
+  const size_t q = (size_t)blockIdx.y * n + blockIdx.x;
+  if (threadIdx.x == 0) {
+    const int c = cells1[q];
+    score[q] = 0.0f;
+    best[q] = c;
+  }
+}
+extern "C" int windowed_match(const void*, const void*, const void*, const void*, const void* cells1,
+                              void* score, void* best, int n, int s, int, int, int, int, int, float,
+                              int, void* st) {
+  match_kernel_floor<<<dim3(n, s), 128, 0, (cudaStream_t)st>>>((const int*)cells1, (float*)score,
+                                                              (int*)best, n);
+  return (int)cudaGetLastError();
+}
+"""
+
+
+def _cut(src, alternatives):
+    """Replace the text from `start` up to `end` (kept) by `new`, for the
+    first (start, end, new) whose markers the source holds."""
+    for start, end, new in alternatives:
+        i = src.find(start)
+        j = src.find(end, i + 1) if i >= 0 else -1
+        if i >= 0 and j >= 0:
+            return src[:i] + new + src[j:]
+    raise RuntimeError("no known U-rebuild markers in the svd3 source")
 
 
 def _edit(src, *pairs):
@@ -98,8 +189,13 @@ def _device_ms(fn, name, iters):
     return total / iters / 1e3
 
 
+def _source(name):
+    with open(os.path.join(CSRC, name)) as f:
+        return f.read()
+
+
 def stem_breakdown():
-    src = open(os.path.join(_build.CSRC, "stem.cu")).read()
+    src = _source("stem.cu")
     libs = _build_all({
         "stem_full": src,
         "stem_no_conv1a": _edit(src, (CONV1A, NO_CONV1A)),
@@ -128,7 +224,7 @@ def stem_breakdown():
 
 
 def nullspace_breakdown():
-    src = open(os.path.join(_build.CSRC, "nullspace.cu")).read()
+    src = _source("nullspace.cu")
     blocks = (1, 3, 5)
     libs = _build_all({**{f"nullspace_block{b}": _edit(src, (KBLOCK, f"constexpr int kBlock = {b};"))
                           for b in blocks}, "nullspace_floor": FLOOR})
@@ -157,11 +253,95 @@ def nullspace_breakdown():
             raise RuntimeError("the substitution blocks disagree")
 
 
+def svd3_breakdown():
+    src = _source("svd3.cu")
+    threads = re.search(r"(?:const int threads|constexpr int kThreads) = (\d+);", src)
+    if threads is None:
+        raise RuntimeError("svd3.cu: block size not found")
+    variants = {"svd3_kernel": src, "svd3_no_u_rebuild": _cut(src, SVD3_NO_U),
+                "svd3_floor": SVD3_FLOOR.replace("THREADS", threads.group(1))}
+    if RECIP in src:
+        variants["svd3_rcp_rn"] = _edit(src, (RECIP, RECIP_RN))
+    libs = _build_all(variants)
+    print(f"[svd3] {CSRC}: {threads.group(1)} threads a block", flush=True)
+    rng = np.random.default_rng(0)
+    for batch in (256, 4096):
+        A = torch.from_numpy(rng.normal(size=(batch, 3, 3)).astype(np.float32)).cuda()
+        U, s, V = (torch.empty(batch, *shape, device="cuda") for shape in ((3, 3), (3,), (3, 3)))
+        runs = [("svd3_floor", 6), ("svd3_kernel", 0), ("svd3_kernel", 1), ("svd3_kernel", 6),
+                ("svd3_no_u_rebuild", 6)] + [("svd3_rcp_rn", k) for k in (0, 1, 6) if "svd3_rcp_rn" in libs]
+        outs = {}
+        for name, sweeps in runs:
+            f = libs[name].svd3
+            f.argtypes = [P, P, P, P, I, I, P]
+
+            def run(f=f, sweeps=sweeps):
+                _build.check(f(A.data_ptr(), U.data_ptr(), s.data_ptr(), V.data_ptr(), batch, sweeps,
+                               torch.cuda.current_stream().cuda_stream), name)
+
+            ms = _device_ms(run, "svd3_kernel", 100)
+            if sweeps == 6 and name in ("svd3_kernel", "svd3_rcp_rn"):
+                outs[name] = s.clone()
+            print(f"[svd3] B={batch} {name} sweeps={sweeps}: device {ms:.5f} ms", flush=True)
+        if "svd3_rcp_rn" in outs:
+            d = float((outs["svd3_rcp_rn"] - outs["svd3_kernel"]).abs().max())
+            print(f"[svd3] B={batch}: rcp.approx against __frcp_rn, max |ds| {d:.3g}", flush=True)
+
+
+def match_breakdown():
+    src = _source("match.cu")
+    per_block = (1, 2, 4)
+    libs = _build_all({**{f"match_q{k}": _edit(src, (KQUERIES, f"constexpr int kQueries = {k};"))
+                          for k in per_block}, "match_floor": MATCH_FLOOR})
+    g = torch.Generator().manual_seed(0)
+    grid_h, grid_w, n = 24, 80, 100
+    for streams in (1, 16):
+        c = grid_h * grid_w
+        d0 = torch.randint(-128, 128, (streams, c, 256), generator=g, dtype=torch.int8).cuda()
+        q = torch.randint(-128, 128, (streams, n, 256), generator=g, dtype=torch.int8).cuda()
+        probs = torch.ones(streams, c).cuda()
+        idx = torch.zeros(streams, c, dtype=torch.int32).cuda()
+        cells = torch.randint(0, c, (streams, n), generator=g, dtype=torch.int32).cuda()
+        outs = {}
+        for name, lib in libs.items():
+            f = lib.windowed_match
+            f.argtypes = [P] * 7 + [I] * 7 + [ctypes.c_float, I, P]
+            score = torch.empty(streams, n, device="cuda")
+            best = torch.empty(streams, n, dtype=torch.int32, device="cuda")
+
+            def run(f=f, score=score, best=best):
+                _build.check(f(q.data_ptr(), d0.data_ptr(), probs.data_ptr(), idx.data_ptr(),
+                               cells.data_ptr(), score.data_ptr(), best.data_ptr(), n, streams,
+                               grid_h, grid_w, 0, 0, 4, 0.1, 1,
+                               torch.cuda.current_stream().cuda_stream), name)
+
+            ms = _device_ms(run, "match_kernel", 100)
+            if name != "match_floor":
+                outs[name] = (score.clone(), best.clone())
+            print(f"[match] S={streams} N={n} {name}: device {ms:.5f} ms", flush=True)
+        ref = outs["match_q1"]
+        same = all(torch.equal(a, b) for o in outs.values() for a, b in zip(o, ref))
+        print(f"[match] S={streams}: kQueries {per_block} bitwise equal: {same}", flush=True)
+        if not same:
+            raise RuntimeError("the match variants disagree")
+
+
+SECTIONS = {"stem": stem_breakdown, "nullspace": nullspace_breakdown, "svd3": svd3_breakdown,
+            "match": match_breakdown}
+
+
 def main():
+    global CSRC
+    args = sys.argv[1:]
+    if args[:1] == ["--csrc"] and len(args) >= 2:
+        CSRC = os.path.abspath(args[1])
+        args = args[2:]
+    if any(a not in SECTIONS for a in args):
+        sys.exit(__doc__)
     if not torch.cuda.is_available():
         sys.exit("torch_kernel_breakdown: no CUDA device (torch.cuda.is_available() is False)")
-    stem_breakdown()
-    nullspace_breakdown()
+    for name in args or SECTIONS:
+        SECTIONS[name]()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)
     print(smi.stdout.strip())
