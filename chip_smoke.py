@@ -11,7 +11,10 @@ Phases, in order; any failure raises and exits non-zero:
   2. hold each kernel against its plain PyTorch version on the card, on
      inputs taken from the tracking step at 192x640 (stem bitwise at
      (1, 192, 640), (16, 192, 640), (2, 36, 44), (1, 6, 10) and on all-0/all-1
-     images; detector C=1920 and at S=16 per stream; match N=100 against
+     images; detector C=1920 and at S=16 per stream, each stream alone
+     equal to its row, plus ties across lane boundaries, cells without a
+     keypoint, extremes, winners on the 8x8 border, Taylor degrees 1-12,
+     one row, a ragged 6x10 grid and an unaligned view; match N=100 against
      C=1920 and at S=16 per stream, cells equal and scores bitwise, with
      each stream alone equal to its row, plus ties, windows clipped at the
      four grid edges by a shift and signed=False; nullspace n=9 at
@@ -246,9 +249,75 @@ def match_cases(q, d0, pr0, ix0, cells, kw):
     return cases
 
 
+def detector_cases(semi, scale):
+    """[(label, semi, scale, kw, expect)]: the detector's contract at its
+    corners, on the main path's (1920, 65) logits: maxima tied across the
+    kernel's lane boundaries (the lower channel wins), cells with no
+    non-negative point logit (64), all 0 / all 127 / all -128 / one 127
+    among -128s, winners on the 8x8 layout's border with a clipped 3x3
+    window, Taylor degrees 1, 2, 5, 8 at scales 1e-7 and 4 and degrees 9
+    and 12, one row (C = 80), a 6x10 grid (a ragged tile) and a view whose
+    base is not 16-byte aligned. `expect`: the winning channels where the
+    case fixes them."""
+    dev, kw = semi.device, dict(degree=5, grid_w=80)
+    cases = []
+    ties = semi[:80].clone()
+    pairs = torch.tensor([(7, 8), (55, 56), (0, 63), (15, 16), (31, 32), (47, 48), (8, 15), (62, 63)],
+                         device=dev)[torch.arange(80, device=dev) % 8]
+    ties[:, :64] = ties[:, :64].clamp(max=100)
+    ties.scatter_(1, pairs, 120)
+    cases.append(("lane-boundary ties", ties, scale, kw, pairs.min(1).values))
+    neg = -(semi[:80].clamp(min=-127).abs()) - 1  # every logit in -128..-1
+    neg[40:, 64] = semi[40:80, 64].clamp(min=-127).abs()  # and only the dustbin >= 0
+    cases.append(("negative / dustbin only", neg, scale, kw,
+                  torch.full((80,), 64, device=dev)))
+    ext = torch.full((80, 65), -128, dtype=torch.int8, device=dev)
+    ext[:20], ext[20:40] = 0, 127
+    lone = torch.arange(60, 80, device=dev) * 11 % 64
+    ext[torch.arange(60, 80, device=dev), lone] = 127
+    cases.append(("zero and extremes", ext, scale, kw,
+                  torch.cat([torch.zeros(40, device=dev), torch.full((20,), 64, device=dev), lone])))
+    border = semi[:80].clamp(max=59)
+    win = torch.tensor([0, 7, 56, 63, 3, 24, 31, 59, 27, 36], device=dev)[torch.arange(80, device=dev) % 10]
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            y, x = win // 8 + dy, win % 8 + dx
+            ok = (y >= 0) & (y < 8) & (x >= 0) & (x < 8)
+            border[ok.nonzero()[:, 0], (8 * y + x)[ok]] = 100
+    border[torch.arange(80, device=dev), win] = 120
+    cases.append(("8x8 border winners", border, scale, kw, win))
+    for degree, s in [(d, s) for d in (1, 2, 5, 8) for s in (1e-7, 4.0)] + [(9, None), (12, None)]:
+        sc = scale if s is None else torch.tensor(s, device=dev)
+        cases.append((f"degree {degree} scale {float(sc):.4g}", semi, sc, dict(kw, degree=degree), None))
+    mid = semi.shape[0] // 2  # a middle row of the frame, where it has keypoints
+    cases.append(("one row (C = 80)", semi[mid:mid + 80], scale, kw, None))
+    cases.append(("6x10 grid", semi[mid:mid + 60], scale, dict(kw, grid_w=10), None))
+    unaligned = torch.cat([semi[:1], semi])[1:]
+    _require(unaligned.data_ptr() % 16 != 0, "the unaligned view is aligned")
+    cases.append(("unaligned view", unaligned, scale, kw, None))
+    return cases
+
+
+def _check_detector(semi, scale, **kw):
+    """Kernel against plain: argmax equal, probs rtol 1e-6, xy atol 1e-3
+    where a cell has a keypoint; returns (kernel outputs, max |dprob|,
+    max |dxy|)."""
+    from maveric_slam_tpu_torch.ops.kernels import detector
+
+    got = detector.detector_postproc(semi, scale, **kw)
+    p, i, xy = got
+    pp, ip, xyp = detector.detector_postproc_plain(semi, scale, **kw)
+    v = ip != 64
+    _require(torch.equal(i, ip), "detector: argmax differs")
+    torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
+    torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
+    dxy = float((xy[v] - xyp[v]).abs().max()) if bool(v.any()) else 0.0
+    return got, float((p - pp).abs().max()), dxy
+
+
 def phase_kernels(inp):
     """Each kernel against its plain version on the same card inputs."""
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
+    from maveric_slam_tpu_torch.ops.kernels import match, nullspace, stem, svd3
 
     errs = {"fused_stem": 0.0}
     for label, img in inp["stem"].items():
@@ -260,16 +329,14 @@ def phase_kernels(inp):
              f"{tuple(got.shape)} int8, {100 * float((ref > 0).float().mean()):.1f}% nonzero, "
              f"{100 * float((ref == 127).float().mean()):.2f}% at 127")
 
-    p, i, xy = detector.detector_postproc(*inp["detector16"])
-    pp, ip, xyp = detector.detector_postproc_plain(*inp["detector16"])
+    semi16, scale16 = inp["detector16"]
+    (p, i, xy), dp, dxy = _check_detector(semi16, scale16)
     for k in range(p.shape[0]):
-        v = ip[k] != 64
-        _require(torch.equal(i[k], ip[k]), f"batched detector stream {k}: argmax differs")
-        torch.testing.assert_close(p[k], pp[k], rtol=1e-6, atol=0)
-        torch.testing.assert_close(xy[k][v], xyp[k][v], rtol=0, atol=1e-3)
+        alone, _, _ = _check_detector(semi16[k], scale16)
+        _require(all(torch.equal(a, b[k]) for a, b in zip(alone, (p, i, xy))),
+                 f"detector stream {k} alone differs from its row of the S=16 call")
     _log(f"[kernels] detector S={p.shape[0]} C={p.shape[1]} (one launch): argmax equal per stream, "
-         f"max |dprob| {float((p - pp).abs().max()):.3g}, "
-         f"max |dxy| {float((xy - xyp)[ip != 64].abs().max()):.3g}")
+         f"max |dprob| {dp:.3g}, max |dxy| {dxy:.3g}; each stream alone equals its row")
     s16, c16 = match.windowed_match(*inp["match16"], **inp["match_kw"])
     sp16, cp16 = match.windowed_match_plain(*inp["match16"], **inp["match_kw"])
     for k in range(s16.shape[0]):
@@ -281,15 +348,17 @@ def phase_kernels(inp):
     _log(f"[kernels] match S={s16.shape[0]} N={s16.shape[1]} (one launch): cells equal and scores "
          f"bitwise equal per stream; each stream alone equals its row")
 
-    p, i, xy = detector.detector_postproc(*inp["detector"])
-    pp, ip, xyp = detector.detector_postproc_plain(*inp["detector"])
-    v = ip != 64
-    _require(torch.equal(i, ip), "detector: argmax differs")
-    torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
-    torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
-    errs["detector_postproc"] = max(float((p - pp).abs().max()), float((xy[v] - xyp[v]).abs().max()))
-    _log(f"[kernels] detector C={p.shape[0]}: argmax equal, {int(v.sum())} keypoint cells, "
-         f"max |dprob| {float((p - pp).abs().max()):.3g}, max |dxy| {float((xy[v] - xyp[v]).abs().max()):.3g}")
+    (p, i, xy), dp, dxy = _check_detector(*inp["detector"])
+    errs["detector_postproc"] = max(dp, dxy)
+    _log(f"[kernels] detector C={p.shape[0]}: argmax equal, {int((i != 64).sum())} keypoint cells, "
+         f"max |dprob| {dp:.3g}, max |dxy| {dxy:.3g}")
+    for label, semi, scale, kw, expect in detector_cases(*inp["detector"]):
+        (p, i, xy), dp, dxy = _check_detector(semi, scale, **kw)
+        _require(expect is None or torch.equal(i, expect.to(i.dtype)),
+                 f"detector {label}: winners {i.tolist()}, expected {expect}")
+        _log(f"[kernels] detector {label}: argmax equal{'' if expect is None else ' and as expected'}, "
+             f"{int((i != 64).sum())} of {i.numel()} keypoint cells, max |dprob| {dp:.3g}, "
+             f"max |dxy| {dxy:.3g}")
 
     s, c = match.windowed_match(*inp["match"], **inp["match_kw"])
     sp_, cp = match.windowed_match_plain(*inp["match"], **inp["match_kw"])

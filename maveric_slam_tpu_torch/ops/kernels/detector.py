@@ -12,10 +12,9 @@ from .. import softmax_topn as st
 from . import _build
 
 launches = 0  # kernel launches since the last reset (see ops.kernels)
-MAX_DEGREE = 8  # kMaxDegree of csrc/detector.cu
 
 
-def _check(semi_q: torch.Tensor, grid_w: int, grid_h: int | None) -> None:
+def _check(semi_q: torch.Tensor, grid_w: int, grid_h: int | None, degree: int) -> None:
     c = semi_q.shape[-2] if semi_q.ndim in (2, 3) else -1
     if semi_q.shape[-1:] != (65,) or c < 0 or c % grid_w:
         raise ValueError(f"semi_q must be (C, 65) or (S, C, 65) with C a multiple of {grid_w}, "
@@ -24,6 +23,8 @@ def _check(semi_q: torch.Tensor, grid_w: int, grid_h: int | None) -> None:
         raise ValueError(f"C = {c} cells is not a {grid_h} x {grid_w} grid")
     if semi_q.dtype != torch.int8:
         raise TypeError(f"semi_q must be int8, got {semi_q.dtype}")
+    if degree < 1:
+        raise ValueError(f"the Taylor degree must be at least 1, got {degree}")
 
 
 def detector_postproc_plain(semi_q: torch.Tensor, scale: torch.Tensor, degree: int = 5,
@@ -31,7 +32,7 @@ def detector_postproc_plain(semi_q: torch.Tensor, scale: torch.Tensor, degree: i
     """approx_softmax_grid + subpixel_xy on (C, 65) or (S, C, 65) row-major
     cell lists, rows counted within each stream. Same results as
     `detector_postproc`."""
-    _check(semi_q, grid_w, grid_h)
+    _check(semi_q, grid_w, grid_h, degree)
     lead, c = semi_q.shape[:-2], semi_q.shape[-2]
     grid3 = semi_q.reshape(*lead, c // grid_w, grid_w, 65)
     grid = st.approx_softmax_grid(grid3, scale, degree)
@@ -45,14 +46,12 @@ def detector_postproc(semi_q: torch.Tensor, scale: torch.Tensor, degree: int = 5
     f32, indices (..., C) int32, xy (..., C, 2) f32, with a cell's row
     counted within its stream. With `grid_h`, C must be grid_h * grid_w.
     CPU tensors take the plain version; CUDA tensors launch the kernel, once
-    for all S streams."""
-    _check(semi_q, grid_w, grid_h)
+    for all S streams. Any Taylor degree >= 1."""
+    _check(semi_q, grid_w, grid_h, degree)
     if semi_q.device.type == "cpu":
         return detector_postproc_plain(semi_q, scale, degree, grid_w, grid_h)
     if semi_q.device.type != "cuda":
         raise ValueError(f"unsupported device {semi_q.device}")
-    if not 1 <= degree <= MAX_DEGREE:
-        raise ValueError(f"the kernel takes Taylor degrees 1..{MAX_DEGREE}, got {degree}")
     scale = torch.as_tensor(scale, dtype=torch.float32, device=semi_q.device).reshape(())
     semi_q = semi_q.contiguous()
     scale = scale.contiguous()

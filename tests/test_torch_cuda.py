@@ -50,17 +50,209 @@ def image0():
         desc.reshape(-1, 256)), scale
 
 
-def test_detector(image0, cuda):
-    semi, _, scale = image0
-    s = torch.from_numpy(semi).to(cuda)
-    sc = torch.tensor(scale, device=cuda)
-    p, i, xy = detector.detector_postproc(s, sc)
-    pp, ip, xyp = detector.detector_postproc_plain(s, sc)
+def _check_detector(semi, scale, **kw):
+    """Kernel against plain at the bars: argmax equal, probs rtol 1e-6, xy
+    atol 1e-3 where a cell has a keypoint. Returns the kernel's outputs."""
+    p, i, xy = detector.detector_postproc(semi, scale, **kw)
+    pp, ip, xyp = detector.detector_postproc_plain(semi, scale, **kw)
     torch.cuda.synchronize()
     assert torch.equal(i, ip)
     torch.testing.assert_close(p, pp, rtol=1e-6, atol=0)
     v = ip != 64
     torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
+    return p, i, xy
+
+
+def test_detector(image0, cuda):
+    semi, _, scale = image0
+    _check_detector(torch.from_numpy(semi).to(cuda), torch.tensor(scale, device=cuda))
+
+
+def detector_edge_cases():
+    """[(label, semi, offset, scale, degree, grid_w, expect)] of the
+    detector's edge cases, seeded: the cells are rows `offset`.. of the
+    int8 array `semi` (offset 1: a view whose base is not 16-byte aligned),
+    `expect` the winning channel of every cell where the case fixes it.
+    - "lane-boundary ties": two channels share the maximum across the
+      kernel's lane boundaries (7/8, 55/56, 0/63, ...): the lower wins;
+    - "negative / dustbin only": every logit negative, or only the dustbin
+      >= 0 (no keypoint, 64), or one 0 among negatives (e = 1 wins);
+    - "zero and extremes": all 0 (every exp 1, channel 0), all 127, all
+      -128, one 127 among -128s, alternating 127/-128;
+    - "8x8 corners and edges": the winner at the corners, edges and middle
+      of the 8x8 layout, its clipped 3x3 window positive;
+    - "degree d scale s": Taylor degrees 1, 2, 5, 8 at scales 1e-7 (the
+      exps of neighbouring logits round to the same value) and 4, and
+      degrees 9 and 12 at image0's scale;
+    - "6x10 grid" (C = 60: a ragged last tile) and "unaligned view"
+      (semi[1:] of a (1921, 65) array, C = 1920).
+    The first four are one row of 80 cells at degree 5 and image0's scale.
+    Also the inputs of tests/test_torch_kernels.py's cases against the JAX
+    package."""
+    rng = np.random.default_rng(13)
+    scale = np.float32(0.3562202453613281)  # image0's semi scale
+
+    def negative(n):
+        return rng.integers(-128, 0, (n, 65)).astype(np.int8)
+
+    cases = []
+    semi, expect = negative(80), np.zeros(80, np.int32)
+    pairs = [(7, 8), (55, 56), (0, 63), (15, 16), (31, 32), (47, 48), (8, 15), (62, 63)]
+    for k in range(80):
+        a, b = pairs[k % len(pairs)]
+        v = int(rng.integers(1, 128))
+        semi[k, rng.choice(64, 6, replace=False)] = rng.integers(0, v, 6)
+        semi[k, [a, b]] = v
+        if k % 2:
+            semi[k, 64] = 127  # the dustbin above the maximum does not compete
+        expect[k] = min(a, b)
+    cases.append(("lane-boundary ties", semi, 0, scale, 5, 80, expect))
+
+    semi, expect = negative(80), np.full(80, 64, np.int32)
+    semi[20:40, 64] = rng.integers(0, 128, 20)
+    for k in range(40, 80):
+        semi[k, (7 * k) % 64] = 0
+        expect[k] = (7 * k) % 64
+    cases.append(("negative / dustbin only", semi, 0, scale, 5, 80, expect))
+
+    semi, expect = np.zeros((80, 65), np.int8), np.zeros(80, np.int32)
+    semi[10:20] = 127
+    semi[20:30], expect[20:30] = -128, 64
+    for k in range(30, 60):
+        semi[k] = -128
+        semi[k, (11 * k) % 64] = 127
+        expect[k] = (11 * k) % 64
+    semi[60:70, 0::2], semi[60:70, 1::2] = 127, -128
+    semi[70:80, 0::2], semi[70:80, 1::2] = -128, 127
+    expect[70:80] = 1
+    cases.append(("zero and extremes", semi, 0, scale, 5, 80, expect))
+
+    winners = [0, 7, 56, 63, 3, 24, 31, 59, 27, 36]
+    semi = rng.integers(-128, 60, (80, 65)).astype(np.int8)
+    expect = np.array([winners[k % len(winners)] for k in range(80)], np.int32)
+    for k, w in enumerate(expect):
+        wy, wx = divmod(int(w), 8)
+        for y in range(max(wy - 1, 0), min(wy + 2, 8)):
+            for x in range(max(wx - 1, 0), min(wx + 2, 8)):
+                semi[k, 8 * y + x] = rng.integers(60, 110)
+        semi[k, w] = 120
+    cases.append(("8x8 corners and edges", semi, 0, scale, 5, 80, expect))
+
+    def random(n):
+        return rng.integers(-128, 128, (n, 65)).astype(np.int8)
+
+    for degree in (1, 2, 5, 8):
+        for s in (1e-7, 4.0):
+            cases.append((f"degree {degree} scale {s:g}", random(160), 0, np.float32(s), degree, 80, None))
+    for degree in (9, 12):
+        cases.append((f"degree {degree} scale {scale:.4g}", random(160), 0, scale, degree, 80, None))
+    cases.append(("6x10 grid", random(60), 0, scale, 5, 10, None))
+    cases.append(("unaligned view", random(1921), 1, scale, 5, 80, None))
+    return cases
+
+
+def detector_kernel_emulation(semi, scale, degree=5, grid_w=80):
+    """The CUDA kernel's arithmetic in numpy f32 on (C, 65) int8 cells, in
+    its fixed order, whatever lanes it runs on: each exp in the reference's
+    order; each row of the 8x8 layout summed left to right, the dustbin
+    added to row 0, the rows as ((r0+r1)+(r2+r3))+((r4+r5)+(r6+r7)); the
+    first maximum over channels 0..63; the winner's 3x3 window summed
+    row-major. Returns (probs, idx, xy) as the kernel should give them, bit
+    for bit."""
+    f32 = np.float32
+    x = semi.astype(f32)
+    acc, xp, p = np.ones_like(x), x.copy(), f32(1.0)
+    for i in range(1, degree):
+        p = f32(f32(p * f32(scale)) / f32(i))
+        acc = acc + p * xp
+        xp = xp * x
+    e = np.where(x >= 0, acc, f32(0.0))
+    rows = e[:, 0:64:8].copy()
+    for j in range(1, 8):
+        rows = rows + e[:, j:64:8]
+    rows[:, 0] = rows[:, 0] + e[:, 64]
+    for _ in range(3):  # the tree: neighbours, then pairs, then halves
+        rows = rows[:, 0::2] + rows[:, 1::2]
+    den = rows[:, 0] + f32(1.175494e-38)
+    arg = np.argmax(e[:, :64], axis=1)  # the first maximum
+    best = e[np.arange(len(e)), arg]
+    has = best > 0
+    idx = np.where(has, arg, 64).astype(np.int32)
+    probs = np.where(has, best / den, f32(-1.0)).astype(f32)
+
+    wx, wy = idx % 8, idx // 8
+    d3, sx, sy = (np.zeros(len(e), f32) for _ in range(3))
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            iy, ix = wy + dy, wx + dx
+            ok = (iy >= 0) & (iy < 8) & (ix >= 0) & (ix < 8)
+            v = np.where(ok, e[np.arange(len(e)), np.clip(8 * iy + ix, 0, 63)], f32(0.0))
+            d3, sx, sy = d3 + v, sx + v * ix.astype(f32), sy + v * iy.astype(f32)
+    d3 = np.maximum(d3, f32(1e-20))
+    cell = np.arange(len(semi))
+    col, row = (cell % grid_w).astype(f32), (cell // grid_w).astype(f32)
+    xy = np.stack([col * f32(8.0) + sx / d3, row * f32(8.0) + sy / d3], axis=-1)
+    return probs, idx, xy
+
+
+def _detector_case(label, device):
+    """(semi, scale, kw, expect) of the named edge case, semi on `device`."""
+    _, semi, offset, scale, degree, grid_w, expect = next(
+        case for case in detector_edge_cases() if case[0] == label)
+    return (torch.from_numpy(semi).to(device)[offset:], torch.tensor(scale, device=device),
+            dict(degree=degree, grid_w=grid_w), expect)
+
+
+@pytest.mark.parametrize("label", [case[0] for case in detector_edge_cases()])
+def test_detector_edge_cases(cuda, label):
+    semi, scale, kw, expect = _detector_case(label, cuda)
+    if label == "unaligned view":
+        assert semi.data_ptr() % 16 != 0  # the kernel's byte-staging path
+    _, i, _ = _check_detector(semi, scale, **kw)
+    if expect is not None:
+        assert i.tolist() == expect.tolist()
+
+
+def test_detector_emulated_order(image0, cuda):
+    """The kernel gives what detector_kernel_emulation computes, bit for bit,
+    on image0 and on every edge case: its reduction order is the one the
+    CPU tests hold against JAX."""
+    semi, _, scale = image0
+    inputs = [(semi, scale, dict(degree=5, grid_w=80))]
+    for _, s, offset, sc, degree, grid_w, _ in detector_edge_cases():
+        inputs.append((s[offset:], sc, dict(degree=degree, grid_w=grid_w)))
+    for s, sc, kw in inputs:
+        got = detector.detector_postproc(torch.from_numpy(s).to(cuda), torch.tensor(sc, device=cuda), **kw)
+        for g, ref in zip(got, detector_kernel_emulation(s, sc, **kw)):
+            np.testing.assert_array_equal(g.cpu().numpy(), ref)
+
+
+def _detector16(image0, cuda):
+    """S = 16 detector inputs: image0's logits with seeded noise k in
+    stream k."""
+    semi, _, scale = image0
+    rng = np.random.default_rng(17)
+    semi16 = np.stack([np.clip(semi.astype(np.int32) + rng.integers(-k, k + 1, semi.shape), -128, 127)
+                       for k in range(16)]).astype(np.int8)
+    return torch.from_numpy(semi16).to(cuda), torch.tensor(scale, device=cuda)
+
+
+def test_detector_streams16(image0, cuda):
+    """The batched step's call, one launch, against plain per stream; each
+    stream alone gives its row of the S = 16 call bit for bit."""
+    semi16, scale = _detector16(image0, cuda)
+    before = detector.launches
+    p16, i16, xy16 = _check_detector(semi16, scale, grid_h=24)
+    assert detector.launches == before + 1
+    for k in range(16):
+        p, i, xy = detector.detector_postproc(semi16[k], scale, grid_h=24)
+        assert torch.equal(p, p16[k]) and torch.equal(i, i16[k]) and torch.equal(xy, xy16[k]), k
+
+
+def test_detector_degree_below_one(cuda):
+    semi = torch.zeros(80, 65, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError):
+        detector.detector_postproc(semi, torch.tensor(0.5, device=cuda), degree=0)
 
 
 @pytest.mark.parametrize("other", ["self", "noisy"])

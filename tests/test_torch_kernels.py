@@ -22,7 +22,8 @@ from maveric_slam_tpu.ops import svd3 as jsvd3
 from maveric_slam_tpu_torch.ops import matching as tmatching
 from maveric_slam_tpu_torch.ops import softmax_topn as tst
 from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
-from test_torch_cuda import match_edge_cases, svd3_edge_cases
+from test_torch_cuda import (detector_edge_cases, detector_kernel_emulation, match_edge_cases,
+                             svd3_edge_cases)
 
 REFCACHE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -76,6 +77,77 @@ class TestDetector:
         np.testing.assert_allclose(probs, p_ref, rtol=1e-6)
         valid = i_ref != 64
         np.testing.assert_allclose(xy[valid], xy_ref[valid], atol=1e-3)
+
+
+def _jax_detector(semi, scale, degree, grid_w):
+    """JAX's jnp path on (C, 65) cells: probs, indices, xy as (C,), (C,), (C, 2)."""
+    semi3 = semi.reshape(-1, grid_w, 65)
+    grid = jst.approx_softmax_grid(semi3, scale, degree)
+    xy = jst.subpixel_xy(semi3, scale, grid, degree)
+    return (np.asarray(grid.probs).reshape(-1), np.asarray(grid.indices).reshape(-1),
+            np.asarray(xy).reshape(-1, 2))
+
+
+def _assert_detector_bars(got, ref):
+    """The detector's bars: argmax exact, probs rtol 1e-6, xy atol 1e-3 where
+    a cell has a keypoint."""
+    probs, idx, xy = got
+    np.testing.assert_array_equal(idx, ref[1])
+    np.testing.assert_allclose(probs, ref[0], rtol=1e-6)
+    valid = ref[1] != 64
+    np.testing.assert_allclose(xy[valid], ref[2][valid], atol=1e-3)
+
+
+@pytest.mark.parametrize("label", [case[0] for case in detector_edge_cases()])
+class TestDetectorEdgeCases:
+    """tests/test_torch_cuda.py::detector_edge_cases (ties across the
+    kernel's lane boundaries, negatives and dustbin-only cells, zeros and
+    extremes, winners on the 8x8 border, Taylor degrees 1-12 at small and
+    large scales, a ragged 6x10 grid, an unaligned view) through the port
+    and the JAX package, at the detector's bars."""
+
+    @staticmethod
+    def _case(label):
+        _, semi, offset, scale, degree, grid_w, expect = next(
+            case for case in detector_edge_cases() if case[0] == label)
+        t = torch.from_numpy(semi)[offset:]
+        got = detector.detector_postproc(t, torch.tensor(scale), degree=degree, grid_w=grid_w)
+        return semi[offset:], scale, degree, grid_w, expect, tuple(g.numpy() for g in got)
+
+    def test_matches_jnp_path(self, label):
+        semi, scale, degree, grid_w, expect, got = self._case(label)
+        _assert_detector_bars(got, _jax_detector(semi, scale, degree, grid_w))
+        if expect is not None:
+            np.testing.assert_array_equal(got[1], expect)
+
+    def test_matches_pallas_interpret(self, label):
+        semi, scale, degree, grid_w, _, got = self._case(label)
+        ref = tuple(np.asarray(a) for a in pallas_kernels.fused_detector_postproc(
+            semi, scale, degree=degree, grid_w=grid_w, interpret=True))
+        _assert_detector_bars(got, ref)
+
+    def test_emulated_kernel_order_matches_jax(self, label):
+        """The CUDA kernel's fixed order of sums (row sums, a tree over the
+        rows, the 3x3 window row-major), emulated in numpy, holds the bars
+        against JAX."""
+        semi, scale, degree, grid_w, _, _ = self._case(label)
+        _assert_detector_bars(detector_kernel_emulation(semi, scale, degree, grid_w),
+                              _jax_detector(semi, scale, degree, grid_w))
+
+
+def test_emulated_kernel_order_matches_jax_on_image0(image0):
+    semi, _, scale = image0
+    flat = semi.reshape(-1, 65)
+    got = detector_kernel_emulation(flat, scale)
+    _assert_detector_bars(got, _jax_detector(flat, scale, 5, 80))
+    assert (got[1] != 64).sum() > 100
+
+
+@pytest.mark.parametrize("degree", [0, -1])
+def test_detector_degree_below_one_raises(degree):
+    with pytest.raises(ValueError):
+        detector.detector_postproc(torch.zeros(80, 65, dtype=torch.int8), torch.tensor(0.5),
+                                   degree=degree)
 
 
 @pytest.mark.parametrize("mode", ["prob", "reference"])

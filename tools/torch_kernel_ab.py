@@ -8,6 +8,8 @@ replaced within one run.
 Each turn is a subprocess run from the checkout's root, which builds that
 checkout's kernels and times its wrappers (all of them, or the KERNELs
 named): `fused_stem` (S = 1 and 16 at 192x640, orbit frames),
+`detector_postproc` (C = 1920 and S = 16 x 1920 cells: the int8 logits of
+orbit frames 12s + 1, s < 16, from the port's SuperPoint),
 `nullspace_inverse_iteration` (n = 9 at the single step's B = 256, 64, 3
 and the batched step's 4096, 1024, 48, seeded PSD matrices), `svd3` (the
 single step's B = 256, 64, 1 and the batched step's 4096, 1024, 16, seeded
@@ -30,7 +32,7 @@ import sys
 H, W, FOCAL = 192, 640, 800.0
 NULLSPACE_B = (256, 64, 3, 4096, 1024, 48)
 SVD3_B = (256, 64, 1, 4096, 1024, 16)
-KERNELS = ("fused_stem", "nullspace_inverse_iteration", "svd3", "windowed_match")
+KERNELS = ("fused_stem", "detector_postproc", "nullspace_inverse_iteration", "svd3", "windowed_match")
 
 
 def _event_ms(torch, fn, iters):
@@ -88,7 +90,7 @@ def measure(kernels):
     from maveric_slam_tpu_torch.config import DEFAULT_CONFIG
     from maveric_slam_tpu_torch.data import synthetic
     from maveric_slam_tpu_torch.models import superpoint as sp
-    from maveric_slam_tpu_torch.ops.kernels import match, nullspace, stem, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
     cuda = torch.device("cuda")
     K = np.array([[FOCAL, 0, W / 2], [0, FOCAL, H / 2], [0, 0, 1]], np.float32)
@@ -108,6 +110,12 @@ def measure(kernels):
             img = torch.from_numpy(frames[:s]).to(cuda)
             row("fused_stem", f"({s}, {H}, {W})", lambda img=img: stem.fused_stem(img, *args),
                 "stem_kernel", iters, iters)
+    if "detector_postproc" in kernels:
+        semi, _, scales = sp.superpoint_int8(params, torch.from_numpy(frames[16:]).to(cuda))
+        semi16, scale = semi.reshape(16, -1, 65), scales["semi_scale"]
+        for label, x in ((f"C={semi16.shape[1]}", semi16[0]), (f"S=16 C={semi16.shape[1]}", semi16)):
+            row("detector_postproc", label, lambda x=x: detector.detector_postproc(x, scale),
+                "detector_kernel", 500, 100)
     rng = np.random.default_rng(0)
     if "nullspace_inverse_iteration" in kernels:
         for b in NULLSPACE_B:

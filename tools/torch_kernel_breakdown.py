@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Where the device time of the port's stem, nullspace, svd3 and match
-kernels goes, by timing copies of their sources with one part taken out.
+"""Where the device time of the port's stem, detector, nullspace, svd3 and
+match kernels goes, by timing copies of their sources with one part taken
+out.
 
-    python3 tools/torch_kernel_breakdown.py [--csrc DIR] [stem] [nullspace] [svd3] [match]
+    python3 tools/torch_kernel_breakdown.py [--csrc DIR] [stem] [detector] [nullspace] [svd3] [match]
 
-With no section named, all four run. `--csrc DIR` reads the kernel sources
+With no section named, all five run. `--csrc DIR` reads the kernel sources
 from DIR (for example the `csrc/` of a `git archive` of another commit)
 instead of this checkout's `maveric_slam_tpu_torch/csrc`. Each copy of a
 source is edited by an exact text substitution (the script fails if a
@@ -15,6 +16,16 @@ outputs are timing only, except where stated):
 
 - stem at (1, 192, 640) and (16, 192, 640): the kernel; without conv1a
   (its work items write zeros); with one k-step of conv1b's 18; both;
+- detector at C = 1920 and S = 16 x 1920 (seeded int8 logits): the
+  kernel at Taylor degree 5 and 1 (no Taylor terms); a copy kernel of the
+  same launch shape (16 cells, 128 threads a block: each lane reads its
+  cell's bytes, one lane writes 16 bytes) as the floor; every tile staged
+  by bytes in place of 16-byte cp.async; the tile
+  as one bulk copy (cp.async.bulk completed on an mbarrier); 1, 2, 4 and
+  8 lanes a cell forced at both sizes (the kernel picks 8 or 1 from the
+  number of cells). Each variant is checked bitwise equal to the kernel
+  (the sums' order does not depend on the lanes). Variants whose pattern
+  a `--csrc` source lacks are left out;
 - nullspace at B = 256 and 4096 (n = 9): the substitution block kBlock =
   1, 3 and 5 (checked bitwise equal to each other); 0, 1 and 10 rounds; and
   a copy kernel of the same launch shape as the floor;
@@ -116,6 +127,60 @@ SVD3_NO_U = (
      "  const float u1[3] = {B[0][1], B[1][1], B[2][1]};\n"
      "  const float u2[3] = {B[0][2], B[1][2], B[2][2]};\n"),
 )
+DET_LANES = "const int lanes = num_cells >= sms * kThreads ? 1 : 8;"
+DET_LAUNCH1 = "return launch<1>("
+DET_STAGING = "  const bool vector = n == kCells"
+DET_TABLE = "  __shared__ float table[128];  // e(x) for x = 0..127\n"
+DET_VECTOR_COPY = ("    for (int i = t; i < kChunks; i += kThreads) cp_async16(smem_addr(tile + 16 * i), "
+                   "src + 16 * i);\n")
+DET_VECTOR_WAIT = "  if (vector) cp_async_wait_all();\n  __syncthreads();\n"
+# The tile as one bulk copy: thread 0 sets up an mbarrier for the tile's
+# bytes and starts the copy; after the block barrier (which publishes the
+# mbarrier) every thread waits for its phase 0 to complete.
+DET_BULK = (
+    (DET_TABLE, DET_TABLE + "  __shared__ __align__(8) uint64_t bar;\n"),
+    (DET_VECTOR_COPY, r"""    if (t == 0) {
+      const uint32_t b = smem_addr(&bar);
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(b) : "memory");
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+      asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(b), "r"(kTileBytes)
+                   : "memory");
+      asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+                   ::"r"(smem_addr(tile)), "l"(src), "r"(kTileBytes), "r"(b) : "memory");
+    }
+"""),
+    (DET_VECTOR_WAIT, r"""  __syncthreads();
+  if (vector) {
+    uint32_t done = 0;
+    while (!done)
+      asm volatile("{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0;\n"
+                   "selp.u32 %0, 1, 0, p;\n}\n" : "=r"(done) : "r"(smem_addr(&bar)) : "memory");
+  }
+"""),
+)
+DET_FLOOR = """#include <cuda_runtime.h>
+#include <stdint.h>
+__global__ void detector_kernel_floor(const int8_t* __restrict__ semi, float* __restrict__ probs,
+                                      int* __restrict__ idx, float* __restrict__ xy, int n) {
+  const int c = blockIdx.x * 16 + threadIdx.x / 8, lane = threadIdx.x % 8;
+  int v = 0;
+  if (c < n)
+    for (int k = lane; k < 65; k += 8) v += semi[(size_t)c * 65 + k];
+  for (int o = 4; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  if (c < n && lane == 0) {
+    probs[c] = (float)v;
+    idx[c] = v;
+    xy[2 * c] = 0.0f;
+    xy[2 * c + 1] = (float)v;
+  }
+}
+extern "C" int detector_postproc(const void* semi, const void*, void* probs, void* idx, void* xy, int n,
+                                 int, int, int, void* st) {
+  detector_kernel_floor<<<(n + 15) / 16, 128, 0, (cudaStream_t)st>>>(
+      (const int8_t*)semi, (float*)probs, (int*)idx, (float*)xy, n);
+  return (int)cudaGetLastError();
+}
+"""
 KQUERIES = "constexpr int kQueries = 1;"
 MATCH_FLOOR = """#include <cuda_runtime.h>
 __global__ void match_kernel_floor(const int* __restrict__ cells1, float* __restrict__ score,
@@ -186,6 +251,8 @@ def _device_ms(fn, name, iters):
             fn()
         torch.cuda.synchronize()
     total = sum(ev.device_time_total for ev in prof.key_averages() if name in ev.key)
+    if total <= 0:
+        raise RuntimeError(f"torch.profiler recorded no device time for {name}")
     return total / iters / 1e3
 
 
@@ -221,6 +288,51 @@ def stem_breakdown():
                 _build.check(err, name)
 
             print(f"[stem] S={s} {name}: device {_device_ms(run, 'stem_kernel', 50):.5f} ms", flush=True)
+
+
+def detector_breakdown():
+    src = _source("detector.cu")
+    variants = {"detector_kernel": src, "detector_floor": DET_FLOOR}
+    if DET_STAGING in src:
+        variants["detector_bytes"] = _edit(src, (DET_STAGING, "  const bool vector = false && n == kCells"))
+    if all(old in src for old, _ in DET_BULK):
+        variants["detector_bulk"] = _edit(src, *DET_BULK)
+    if DET_LANES in src:
+        for lanes in (1, 2, 4, 8):  # forced, whatever the number of cells
+            variants[f"detector_lanes{lanes}"] = _edit(
+                src, (DET_LANES, "const int lanes = 1;"), (DET_LAUNCH1, f"return launch<{lanes}>("))
+    libs = _build_all(variants)
+    g = torch.Generator().manual_seed(0)
+    scale = torch.tensor(0.3562, device="cuda")
+    for streams in (1, 16):
+        semi = torch.randint(-128, 128, (streams * 1920, 65), generator=g, dtype=torch.int8).cuda()
+        n = semi.shape[0]
+        outs = {}
+        for name, lib in libs.items():
+            f = lib.detector_postproc
+            f.argtypes = [P] * 5 + [I] * 4 + [P]
+            for degree in ((5, 1) if name == "detector_kernel" else (5,)):
+                probs = torch.empty(n, device="cuda")
+                idx = torch.empty(n, dtype=torch.int32, device="cuda")
+                xy = torch.empty(n, 2, device="cuda")
+
+                def run(f=f, degree=degree, probs=probs, idx=idx, xy=xy):
+                    _build.check(f(semi.data_ptr(), scale.data_ptr(), probs.data_ptr(), idx.data_ptr(),
+                                   xy.data_ptr(), n, 1920, 80, degree,
+                                   torch.cuda.current_stream().cuda_stream), name)
+
+                ms = _device_ms(run, "detector_kernel", 100)
+                if degree == 5 and name != "detector_floor":
+                    outs[name] = (probs, idx, xy)
+                print(f"[detector] S={streams} C=1920 {name} degree={degree}: device {ms:.5f} ms", flush=True)
+        ref = outs["detector_kernel"]
+        for name, out in outs.items():
+            same = all(torch.equal(a, b) for a, b in zip(out, ref))
+            dp = float(((out[0] - ref[0]).abs() / ref[0].abs().clamp(min=1e-30)).max())
+            print(f"[detector] S={streams}: {name} bitwise equal to the kernel: {same}, argmax equal: "
+                  f"{torch.equal(out[1], ref[1])}, max relative |dprob| {dp:.3g}", flush=True)
+            if not same and (name in ("detector_bytes", "detector_bulk") or DET_LANES in src):
+                raise RuntimeError(f"detector variant {name} disagrees with the kernel")
 
 
 def nullspace_breakdown():
@@ -326,8 +438,8 @@ def match_breakdown():
             raise RuntimeError("the match variants disagree")
 
 
-SECTIONS = {"stem": stem_breakdown, "nullspace": nullspace_breakdown, "svd3": svd3_breakdown,
-            "match": match_breakdown}
+SECTIONS = {"stem": stem_breakdown, "detector": detector_breakdown, "nullspace": nullspace_breakdown,
+            "svd3": svd3_breakdown, "match": match_breakdown}
 
 
 def main():
