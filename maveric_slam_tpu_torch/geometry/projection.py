@@ -22,6 +22,12 @@ def project(K: torch.Tensor, p_cam: torch.Tensor) -> torch.Tensor:
     return torch.stack([u, v], dim=-1)
 
 
+def reprojection_residual(K, R, t, X, z) -> torch.Tensor:
+    """r = pi(R X + t) - z for world points X (..., N, 3), pixels z (..., N, 2)
+    and one pose R (..., 3, 3), t (..., 3) per leading index."""
+    return project(K, apply_rows(X, R) + t[..., None, :]) - z
+
+
 def residual_and_jacobians(K, R, t, X, z):
     """Residuals r (..., N, 2), J_pose (..., N, 2, 6) and J_point
     (..., N, 2, 3) for N factors (X (..., N, 3) world points, z (..., N, 2)

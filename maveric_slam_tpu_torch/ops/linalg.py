@@ -1,5 +1,5 @@
 """Small batched linear algebra (port of maveric_slam_tpu/ops/linalg.py, the
-parts the tracking step uses). Batches are (..., n, n)."""
+parts the tracking step and bundle adjustment use). Batches are (..., n, n)."""
 
 from __future__ import annotations
 
@@ -17,6 +17,27 @@ def apply_rows(X: torch.Tensor, A: torch.Tensor) -> torch.Tensor:
     for j in range(1, X.shape[-1]):
         out = out + X[..., j, None] * Ab[..., j]
     return out
+
+
+def inv3x3(M: torch.Tensor, damping=0.0) -> torch.Tensor:
+    """Analytic inverse of (..., 3, 3) matrices by the adjugate, after adding
+    `damping` (a float or a () tensor) to the diagonal; |det| < 1e-20 is
+    replaced by 1e-20."""
+    M = M + damping * torch.eye(3, dtype=M.dtype, device=M.device)
+    a, b, c = M[..., 0, 0], M[..., 0, 1], M[..., 0, 2]
+    d, e, f = M[..., 1, 0], M[..., 1, 1], M[..., 1, 2]
+    g, h, i = M[..., 2, 0], M[..., 2, 1], M[..., 2, 2]
+    A = e * i - f * h
+    B = -(d * i - f * g)
+    C = d * h - e * g
+    det = a * A + b * B + c * C
+    inv_det = 1.0 / torch.where(torch.abs(det) < 1e-20, 1e-20, det)
+    cof = torch.stack([
+        A, -(b * i - c * h), (b * f - c * e),
+        B, (a * i - c * g), -(a * f - c * d),
+        C, -(a * h - b * g), (a * e - b * d),
+    ], dim=-1).reshape(M.shape)
+    return cof * inv_det[..., None, None]
 
 
 def cholesky_small(A: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""Windowed int8 descriptor matching (port of maveric_slam_tpu/ops/matching.py
-`windowed_match`)."""
+"""Descriptor matching (port of maveric_slam_tpu/ops/matching.py): the
+windowed int8 matcher of the tracker (a CUDA kernel on a card) and the float
+nearest-neighbour matchers of the golden pipeline (f32 products, TF32 off).
+Ties go to the first maximum / minimum, as in the JAX package."""
 
 from __future__ import annotations
 
@@ -74,3 +76,33 @@ def windowed_match(
         mask=matched,
         num_matches=torch.sum(matched, dim=-1).to(torch.int32),
     )
+
+
+class NNMatches(NamedTuple):
+    index: torch.Tensor  # (Na,) int32 best match in B
+    score: torch.Tensor  # (Na,) float32 dot product (nn_match_dot) or L2 distance (two-way)
+    mask: torch.Tensor  # (Na,) bool
+
+
+def nn_match_dot(descA: torch.Tensor, descB: torch.Tensor, maskA: torch.Tensor,
+                 maskB: torch.Tensor, dot_thresh: float = 0.8) -> NNMatches:
+    """One-way best-dot match of L2-normalized (Na, D) against (Nb, D)."""
+    dots = torch.where(maskB[None, :], descA @ descB.T, -torch.inf)
+    idx = torch.argmax(dots, dim=-1)
+    score = torch.take_along_dim(dots, idx[:, None], dim=-1)[:, 0]
+    return NNMatches(index=idx.to(torch.int32), score=score, mask=maskA & (score > dot_thresh))
+
+
+def nn_match_two_way(descA: torch.Tensor, descB: torch.Tensor, maskA: torch.Tensor,
+                     maskB: torch.Tensor, nn_thresh: float = 0.7) -> NNMatches:
+    """Two-way-consistent NN match on L2 distance d = sqrt(2 - 2 dot): keep
+    (i, j) iff j = argmin_j d(i, j), i = argmin_i d(i, j) and d < nn_thresh."""
+    dots = torch.clamp(descA @ descB.T, -1.0, 1.0)
+    dist = torch.sqrt(torch.clamp(2.0 - 2.0 * dots, min=0.0))
+    dist = torch.where(maskA[:, None] & maskB[None, :], dist, torch.inf)
+    j_of_i = torch.argmin(dist, dim=1)
+    i_of_j = torch.argmin(dist, dim=0)
+    d = torch.take_along_dim(dist, j_of_i[:, None], dim=1)[:, 0]
+    mutual = i_of_j[j_of_i] == torch.arange(descA.shape[0], device=descA.device)
+    return NNMatches(index=j_of_i.to(torch.int32), score=d,
+                     mask=maskA & mutual & (d < nn_thresh))

@@ -585,3 +585,109 @@ def test_batched_detector_and_match(image0, cuda):
     torch.cuda.synchronize()
     assert torch.equal(cm, cp)
     torch.testing.assert_close(sm, sp_, rtol=1e-5, atol=0)
+
+
+# The pairwise pipeline and the backend, card against CPU. The scenes are
+# chip_smoke.py's (it imports no JAX): orbit frames at 96x320, the BA scene
+# of tests/test_ba.py and a drifting pose-graph loop.
+
+def _orbit96(ks):
+    K = np.array([[400.0, 0, 160.0], [0, 400.0, 48.0], [0, 0, 1]], np.float32)
+    poses = synthetic.orbit_poses(96)
+    return {k: synthetic.render_box_room(K, poses[k], 96, 320) for k in ks}
+
+
+def _config96():
+    import dataclasses
+
+    from maveric_slam_tpu_torch.config import DEFAULT_CONFIG, CameraConfig
+
+    d = DEFAULT_CONFIG
+    return dataclasses.replace(
+        d, camera=CameraConfig(fx=400.0, fy=400.0, cx=160.0, cy=48.0, width=320, height=96),
+        frontend=dataclasses.replace(d.frontend, height=96, width=320),
+        ransac=dataclasses.replace(d.ransac, inlier_thresh=3.0 / 400.0))
+
+
+def test_pairwise_pose_card_vs_cpu(cuda):
+    """Two stem launches, four nullspace and three svd3 launches a call; the
+    same counts and rotation within 0.01 deg of the CPU with the same noise."""
+    from maveric_slam_tpu_torch.frontend import pairwise
+    from maveric_slam_tpu_torch.geometry import ransac
+    from maveric_slam_tpu_torch.ops import kernels
+
+    cfg, fr = _config96(), _orbit96((0, 4))
+    gen = torch.Generator().manual_seed(5)
+    gmin = ransac.gumbel((256, 1000), gen, "cpu")
+    glo = ransac.gumbel((64, 1000), gen, "cpu")
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = sp.load_params(device=dev)
+        kernels.reset_launch_counts()
+        r = pairwise.pairwise_pose(params, torch.from_numpy(fr[0]).to(dev), torch.from_numpy(fr[4]).to(dev),
+                                   cfg, gmin.to(dev), glo.to(dev))
+        out[dev] = (r, kernels.launch_counts())
+    (c, _), (g, launches) = out["cpu"], out["cuda"]
+    assert launches == {"detector_postproc": 0, "windowed_match": 0,
+                        "nullspace_inverse_iteration": 4, "svd3": 3, "fused_stem": 2}
+    assert int(g.num_matches) == int(c.num_matches) and int(g.num_inliers) == int(c.num_inliers)
+    cos = (torch.trace(g.R.cpu().T @ c.R) - 1) / 2
+    assert float(torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))) < 0.01
+
+
+def test_quadrant_nms_card_vs_cpu(cuda):
+    """extract_quantized(apply_nms=True) on the card: the same cells
+    suppressed as on the CPU, except beside a neighbour within the
+    detector's bar (rtol 1e-6) of the cell's prob."""
+    from maveric_slam_tpu_torch.frontend import extractor
+
+    cfg, fr = _config96(), _orbit96((0, 1, 2, 3))
+    imgs = torch.from_numpy(np.stack(list(fr.values())))
+    g = extractor.extract_quantized_batched(sp.load_params(device="cuda"), imgs.to(cuda), cfg, apply_nms=True)
+    c = extractor.extract_quantized_batched(sp.load_params(device="cpu"), imgs, cfg, apply_nms=True)
+    for s, r, col in (g.indices.cpu() != c.indices).nonzero().tolist():
+        p = c.probs[s]
+        near = [abs(float(p[r + dr, col + dc]) - float(p[r, col])) <= 1e-6 * abs(float(p[r, col]))
+                for dr in (-1, 0, 1) for dc in (-1, 0, 1) if (dr or dc)
+                and 0 <= r + dr < p.shape[0] and 0 <= col + dc < p.shape[1]]
+        assert any(near), (s, r, col)
+
+
+def test_bundle_adjust_card_vs_cpu(cuda):
+    """Dense and factor-list BA at P = 8, L = 256 (tests/test_ba.py's scene,
+    35% density): the card's poses within R 1e-4 and t 1e-3 of the CPU's,
+    the cost never rising, sparse equal to dense at tests/test_ba.py's bars."""
+    import chip_smoke
+    from maveric_slam_tpu_torch.backend import ba, sparse_ba
+
+    scene, _ = chip_smoke.ba_scene(num_landmarks=256)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        prob = ba.BAProblem(*(torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in scene))
+        out[dev] = (ba.bundle_adjust(prob), sparse_ba.bundle_adjust(sparse_ba.from_dense(prob)))
+    ((dc, _), (sc, _)), ((dg, stats), (sg, costs)) = out["cpu"], out["cuda"]
+    for a, b in ((dg, dc), (sg, sc)):
+        assert float((a.R.cpu() - b.R).abs().max()) <= 1e-4
+        assert float((a.t.cpu() - b.t).abs().max()) <= 1e-3
+    c = stats.cost.cpu().numpy()
+    assert np.all(np.diff(c) <= 0) and np.all(np.diff(costs.cpu().numpy()) <= 0)
+    assert float((sg.t - dg.t).abs().max()) <= 2e-3 and float((sg.R - dg.R).abs().max()) <= 2e-4
+
+
+def test_pose_graph_card_vs_cpu(cuda):
+    """A 21-pose drifting loop padded as slam.py pads (32 nodes, 64 edges),
+    8 iterations: the card within 1e-4 of the CPU, drift reduced."""
+    import chip_smoke
+    from maveric_slam_tpu_torch.backend import pose_graph
+
+    fields, (_, t_gt) = chip_smoke.loop_graph(n=21, pad_nodes=32, pad_edges=64)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        graph = pose_graph.PoseGraph(*(torch.from_numpy(a).to(dev) for a in fields))
+        out[dev] = pose_graph.optimize(graph, iterations=8)
+    (oc, cc), (og, cg) = out["cpu"], out["cuda"]
+    assert float((og.R.cpu() - oc.R).abs().max()) <= 1e-4
+    assert float((og.t.cpu() - oc.t).abs().max()) <= 1e-4
+    after = np.linalg.norm(og.t.cpu().numpy()[:21] - t_gt, axis=-1)
+    before = np.linalg.norm(fields[1][:21] - t_gt, axis=-1)
+    assert float(cg[-1]) < float(cg[0]) / 100 and after.mean() < before.mean()

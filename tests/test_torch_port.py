@@ -71,7 +71,6 @@ def test_entry_points_refuse_missing_cuda():
 
 
 def test_unported_options_raise():
-    from maveric_slam_tpu_torch.frontend import extractor
     from maveric_slam_tpu_torch.models import superpoint as sp
 
     params = sp.load_params(device="cpu")
@@ -79,10 +78,6 @@ def test_unported_options_raise():
     for stem in ("interpret", "on"):  # "interpret" is a JAX-only mode
         with pytest.raises(ValueError, match="stem"):
             sp.superpoint_int8(params, img, stem=stem)
-    with pytest.raises(NotImplementedError):
-        extractor.extract_quantized(
-            params, img[0], torch_config.DEFAULT_CONFIG, apply_nms=True
-        )
 
 
 def test_kernel_wrappers_validate_inputs():
