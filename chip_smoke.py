@@ -43,6 +43,15 @@ Phases, in order; any failure raises and exits non-zero:
      package's, sparse equal to dense, card against CPU); [pose-graph]
      `pose_graph.optimize` at 256 nodes, 288 edges, 8 iterations (drift
      reduced, card against CPU); each timed a call (host clock);
+  5c. [slam] drive `SlamSystem` (the engine behind the `track` CLI, loop
+     closure on, BA every 4 frames, synchronous) over 250 frames of the
+     closing orbit at DEFAULT_CONFIG's width, with its own launch counts
+     (per frame and per loop verification); valid steps, inliers, loop
+     closures on the revisit arc, the full engine's ATE against the
+     odometry's; host wall per frame, per BA window and per loop closure;
+     [slam-cpu] its first 12 frames through the port on the CPU with the
+     same noise (word ids, pool sightings and counts equal), and
+     `assign_words` / `lcd.query` card against CPU on the run's data;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -54,9 +63,9 @@ Phases, in order; any failure raises and exits non-zero:
   7. then, under torch.profiler, each kernel's own device time (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
      main-path shape of step 2), each layer's and each phase 5b call's
-     device-busy time and launches, and the single and batched steps'
-     device-busy shares (last, so that no untraced timing runs after a
-     profiler).
+     device-busy time and launches, the single and batched steps' and the
+     engine's device-busy shares, and one loop verification's (last, so
+     that no untraced timing runs after a profiler).
 The last three lines are the card's name and power limit, a JSON object of
 per-kernel numbers, and `{"ok": true, "device": {...}}`.
 
@@ -126,6 +135,21 @@ GRAPH_END_BAR = 0.01
 # pose-graph`). Bars (`graph_gaps`): absolute R and t twice that spread,
 # relative R and t four times, the final cost within 1%.
 GRAPH_CARD_BARS = {"R": 2e-2, "t": 1.2, "rel R": 2e-3, "rel t": 3.2e-4, "cost": 1e-2}
+# [slam]: SlamSystem (loop closure on, BA every 4 frames, synchronous) over
+# ~1.3 turns of the orbit, so that the revisit arc (frames ORBIT_N..) lies
+# beyond the LCD's 50-frame gap; the checks scale
+# tests/test_synthetic_accuracy.py's (96-frame orbit, loop pairs within 6 of
+# a turn) to this orbit.
+SLAM_FRAMES, SLAM_BA_EVERY = 250, 4
+# Steps that may be not valid: the JAX package loses tracking on frame 154 of
+# these frames too (0 inliers, 248 of 249 steps valid, with its own noise:
+# `python tools/torch_smoke_vs_jax.py slam --size 192x640`); every other step
+# must be valid.
+SLAM_LOST_AS_JAX = {154}
+SLAM_GAP_BAR = 12  # |frame - matched_frame - ORBIT_N| of every loop closure
+SLAM_MIN_MEDIAN_INLIERS, SLAM_MIN_LOOP_INLIERS = 40, 30
+SLAM_ATE_RATIO = 0.85  # full-engine ATE below this share of the odometry-only ATE
+SLAM_CPU_FRAMES = 12  # [slam-cpu]: the run's first frames through the port on the CPU
 
 
 def _log(*a):
@@ -1034,6 +1058,282 @@ def phase_pose_graph():
     return call
 
 
+def slam_scene(cfg, renders):
+    """[slam]'s frames (orbit index k % ORBIT_N, rendered once each, on a
+    thread pool), ground truth and tracking noise (from a seeded host
+    generator, so that the CPU run can take the same)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from maveric_slam_tpu_torch.data import synthetic
+    from maveric_slam_tpu_torch.geometry import ransac
+
+    orbit = synthetic.orbit_poses(ORBIT_N)
+    idx = np.arange(SLAM_FRAMES) % ORBIT_N
+    todo = sorted(set(idx.tolist()) - set(renders))
+    K = cfg.working_camera.K
+    with ThreadPoolExecutor(8) as pool:
+        for k, img in zip(todo, pool.map(lambda k: synthetic.render_box_room(K, orbit[k], H, W), todo)):
+            renders[k] = img
+    gen = torch.Generator().manual_seed(3)
+    m, k = cfg.frontend.top_n, cfg.ransac.num_hypotheses
+    noises = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
+              for _ in range(SLAM_FRAMES - 1)]
+    return [renders[k] for k in idx], orbit[idx], noises
+
+
+def run_slam(dev, frames, noises, cfg):
+    """`SlamSystem` on `dev` over the frames with the tracking noise
+    injected; launch counts set to 0 just before it starts. Returns the
+    engine, a record per frame (host wall, launch counts after it, its packed
+    step's word ids, cells, descriptors and sightings) and the wall times of
+    each window BA (dispatch + apply) and loop verification (+ pose graph
+    when accepted)."""
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.slam import SlamSystem
+
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    slam = SlamSystem(sp.load_params(device=dev), cfg, ba_every=SLAM_BA_EVERY,
+                      enable_loop_closure=True, fetch_delay=0, device=dev)
+    spans = {"ba": [], "loop": [], "verify": []}
+    views = []
+    unpack, dispatch, apply = slam._packer.unpack, slam._dispatch_window_ba, slam._apply_pending_ba
+    close, verify = slam._verify_and_close_loop, slam._verify_loop
+
+    def keep(flat):
+        v = unpack(flat)
+        views.append({"word_ids": v.word_ids, "cells": v.cells_new, "desc": v.desc_top,
+                      "desc_scale": v.desc_scale, "sightings": v.sightings})
+        return v
+
+    def timed(fn, sink, when=lambda: True):
+        def run(*a):
+            if not when():
+                return fn(*a)
+            sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            sync()
+            sink.append((time.perf_counter() - t0, out))
+            return out
+        return run
+
+    slam._packer.unpack = keep
+    slam._dispatch_window_ba = timed(dispatch, spans["ba"])
+    slam._apply_pending_ba = timed(apply, spans["ba"], lambda: slam._pending_ba is not None)
+    slam._verify_and_close_loop = timed(close, spans["loop"])
+    flats = []
+
+    def verify_keep(flat):
+        flats.append(flat)
+        return verify(flat)
+
+    slam._verify_loop = timed(verify_keep, spans["verify"])
+    sync()
+    kernels.reset_launch_counts()
+    record = []
+    for j, f in enumerate(frames):
+        sync()
+        t0 = time.perf_counter()
+        slam.process(f, *(() if j == 0 else noises[j - 1]))
+        sync()
+        record.append({"wall": time.perf_counter() - t0, "launches": kernels.launch_counts()})
+    slam.finish()
+    launches = kernels.launch_counts()
+    for r, v in zip(record[1:], views):
+        r.update(v)
+    # dispatch and apply alternate at fetch_delay 0: one BA window is a pair
+    ba = [a[0] + b[0] for a, b in zip(spans["ba"][::2], spans["ba"][1::2])]
+    spans["flats"] = flats
+    return slam, record, launches, ba, spans
+
+
+def _launch_patterns(record):
+    """The run's per-frame launch counts: {counts as JSON: [frames]}."""
+    out, prev = {}, {k: 0 for k in record[0]["launches"]}
+    for j, r in enumerate(record):
+        out.setdefault(json.dumps({k: v - prev[k] for k, v in r["launches"].items()}), []).append(j)
+        prev = r["launches"]
+    return out
+
+
+def phase_slam(cfg, renders):
+    """The engine the `track` CLI runs, at DEFAULT_CONFIG's width (192x640,
+    top_n 100, the 10 x 1000-word vocabulary, a 4096-frame LCD ring, an
+    8-pose x 1024-landmark BA window) on the card: every step valid, the
+    median inlier count, loop closures on the revisit arc with the right
+    frames, the full engine's ATE against the odometry-only ATE; launch
+    counts per frame and per loop verification; host wall per frame, per BA
+    window and per loop closure. Returns the scene, the engine and its
+    records for [slam-cpu] and the profiler."""
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    frames, gt, noises = slam_scene(cfg, renders)
+    cuda = torch.device("cuda")
+    slam, record, launches, ba_s, spans = run_slam(cuda, frames, noises, cfg)
+    n, v = len(frames), slam.verifications
+    for counts, js in sorted(_launch_patterns(record).items(), key=lambda kv: -len(kv[1])):
+        _log(f"[slam] {len(js)} frames launch {counts} each: frames "
+             f"{js if len(js) < 80 else f'{js[:3]} .. {js[-3:]}'}")
+    expected = {"detector_postproc": n, "windowed_match": n - 1,
+                "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v, "svd3": 3 * (n - 1) + 3 * v,
+                "fused_stem": n}
+    _log(f"[slam] {n} frames at {H}x{W}, {v} loop verifications, kernels {json.dumps(launches)} "
+         f"(expected {json.dumps(expected)}: 1 stem, 1 detector a frame, 1 match, 4 nullspace, "
+         f"3 svd3 a tracked frame, 4 nullspace and 3 svd3 a verification)")
+    _require(launches == expected, f"slam launches {launches}, expected {expected}")
+
+    st = slam.stats
+    lost = {j + 1 for j, s in enumerate(st) if not s["valid"]}
+    traj, odo = slam.trajectory(), slam.odometry_trajectory()
+    full, odom = evaluation.ate(traj, gt), evaluation.ate(odo, gt)
+    inl = [s["inliers"] for s in st]
+    ev = [(e.frame, e.matched_frame, e.num_inliers, round(e.score, 4)) for e in slam.loop_events]
+    _log(f"[slam] valid {sum(s['valid'] for s in st)}/{len(st)} (frames not valid: {sorted(lost)}; "
+         f"allowed: {sorted(SLAM_LOST_AS_JAX)}), inliers median {np.median(inl)} "
+         f"min {min(inl)}; keyframes {len(slam.kf_frames)}; loop closures (frame, matched, inliers, "
+         f"score) {ev}")
+    _log(f"[slam] inliers a frame: {' '.join(str(i) for i in inl)}")
+    _log(f"[slam] ATE full engine {full['ate_rmse']:.4f} m, odometry only {odom['ate_rmse']:.4f} m "
+         f"(ratio {full['ate_rmse'] / odom['ate_rmse']:.4f}, bar {SLAM_ATE_RATIO}), scale "
+         f"{full['scale']:.4f} / {odom['scale']:.4f}")
+    wall = np.array([r["wall"] for r in record[1:]]) * 1e3
+    _log(f"[slam] wall a frame median {np.median(wall):.3f} ms, p90 {np.percentile(wall, 90):.3f} ms, "
+         f"max {wall.max():.3f} ms; engine {n / (sum(r['wall'] for r in record)):.2f} frames/s over "
+         f"{n} frames")
+    _log(f"[slam] window BA: {len(ba_s)} windows, wall median {1e3 * np.median(ba_s):.3f} ms, max "
+         f"{1e3 * max(ba_s):.3f} ms (dispatch + apply)")
+    acc = [s for s, out in spans["loop"] if out is not None]
+    rej = [s for s, out in spans["loop"] if out is None]
+    ver = [s for s, _ in spans["verify"]]
+    _log(f"[slam] loop verification: {len(ver)} calls, wall median "
+         f"{1e3 * np.median(ver) if ver else float('nan'):.3f} ms; "
+         f"closures accepted {len(acc)} (verification + pose graph: median "
+         f"{1e3 * np.median(acc) if acc else float('nan'):.3f} ms, max "
+         f"{1e3 * max(acc) if acc else float('nan'):.3f} ms), rejected {len(rej)}")
+
+    checks = [
+        (lost <= SLAM_LOST_AS_JAX, f"steps not valid at frames {sorted(lost)}"),
+        (np.median(inl) >= SLAM_MIN_MEDIAN_INLIERS, f"median inliers {np.median(inl)}"),
+        (bool(slam.loop_events), "no loop closure on the closing orbit"),
+        (all(abs(e.frame - e.matched_frame - ORBIT_N) <= SLAM_GAP_BAR for e in slam.loop_events),
+         f"loop pairs off the revisit {ev}"),
+        (all(e.num_inliers >= SLAM_MIN_LOOP_INLIERS for e in slam.loop_events), f"loop inliers {ev}"),
+        (full["ate_rmse"] < SLAM_ATE_RATIO * odom["ate_rmse"],
+         f"ATE {full['ate_rmse']} not below {SLAM_ATE_RATIO} x odometry {odom['ate_rmse']}"),
+    ]
+    _require(all(ok for ok, _ in checks), "slam: " + "; ".join(w for ok, w in checks if not ok))
+    flat = spans["flats"][0] if spans["flats"] else None
+    return {"frames": frames, "noises": noises, "slam": slam, "record": record,
+            "launches": launches, "verify_flat": flat}
+
+
+def phase_slam_cpu(cfg, run):
+    """[slam]'s first SLAM_CPU_FRAMES frames through the port on the CPU with
+    the same noise: per frame the (cell, word id) pairs and the pool's
+    sightings equal the card's, and the counts; the pose differences per
+    step (bar: 1 deg, Faults (g)). Then `assign_words` and `lcd.query` on the
+    card against the CPU on the run's own descriptors and database."""
+    from maveric_slam_tpu_torch.loopclosure import lcd, vocab as vocab_lib
+
+    n = SLAM_CPU_FRAMES
+    card = run["slam"]
+    cpu, record, _, _, _ = run_slam(torch.device("cpu"), run["frames"][:n], run["noises"], cfg)
+    failures = []
+    for j in range(1, n):
+        g, c = run["record"][j], record[j]
+        same_order = np.array_equal(g["word_ids"], c["word_ids"])
+        pairs = [sorted(zip(r["cells"][r["cells"] >= 0].tolist(), r["word_ids"][r["cells"] >= 0].tolist()))
+                 for r in (g, c)]
+        sights = np.array_equal(g["sightings"], c["sightings"])
+        gs, cs = card.stats[j - 1], cpu.stats[j - 1]
+        counts = all(gs[k] == cs[k] for k in ("matches", "inliers", "valid"))
+        (gR, gt_), (cR, ct) = card.rel_poses[j - 1], cpu.rel_poses[j - 1]
+        rot = _rot_deg(gR, cR)
+        _log(f"[slam-cpu] frame {j}: (cell, word) pairs {'equal' if pairs[0] == pairs[1] else 'DIFFER'}"
+             f" (in the same order: {same_order}), sightings {'equal' if sights else 'DIFFER'}, matches "
+             f"{gs['matches']}/{cs['matches']} inliers {gs['inliers']}/{cs['inliers']}; max |dR| "
+             f"{np.abs(gR - cR).max():.3g} max |dt| {np.abs(gt_ - ct).max():.3g} rot diff {rot:.4f} deg")
+        for ok, what in ((pairs[0] == pairs[1], "word ids"), (sights, "sightings"), (counts, "counts"),
+                         (rot < 1.0, f"rotation {rot} deg")):
+            if not ok:
+                failures.append(f"frame {j}: {what}")
+    _require(card.kf_frames[:len(cpu.kf_frames)] == cpu.kf_frames, "slam-cpu: keyframes differ")
+
+    # assign_words on the card against the CPU, on the run's own descriptors.
+    vg, vc = card.vocab, vocab_lib.load_reference_vocabulary(device="cpu")
+    recs = run["record"][1::10]
+    for r in recs:
+        mask = torch.from_numpy(r["cells"] >= 0)
+        desc, scale = torch.from_numpy(r["desc"]), torch.tensor(float(r["desc_scale"]))
+        a = vocab_lib.assign_words(desc.to(card.device), scale.to(card.device), mask.to(card.device), vg)
+        b = vocab_lib.assign_words(desc, scale, mask, vc)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+            failures.append("assign_words card differs from the CPU")
+        if not np.array_equal(b.word_id.numpy(), r["word_ids"]):
+            failures.append("assign_words differs from the engine's word ids")
+    # lcd.query on the card against the CPU, on the run's database.
+    db = card.db
+    db_cpu = db._replace(**{k: getattr(db, k).cpu() for k in ("multihot", "counts", "frames", "valid")})
+    frame = len(run["frames"]) - 1
+    kfs = [kf for kf in card.kf_frames[-8:] if kf > 0]  # frame 0 has no step
+    for kf in kfs:
+        ids = torch.from_numpy(run["record"][kf]["word_ids"])
+        a = lcd.query(db, ids.to(card.device), frame, cfg.loop.min_frame_gap, cfg.loop.min_score)
+        b = lcd.query(db_cpu, ids, frame, cfg.loop.min_frame_gap, cfg.loop.min_score)
+        if not all(torch.equal(x.cpu(), y) for x, y in zip(a, b)):
+            failures.append(f"lcd.query of keyframe {kf}: card differs from the CPU")
+    _log(f"[slam-cpu] assign_words on {len(recs)} of the run's frames and lcd.query of "
+         f"{len(kfs)} keyframes against the run's database ({int(db.valid.sum())} "
+         f"stored frames): card {'equal to' if not failures else 'against'} the CPU")
+    _require(not failures, "slam-cpu: " + "; ".join(failures))
+
+
+def phase_profile_slam(cfg, run, warm=8, frames=8):
+    """The engine under torch.profiler: a fresh SlamSystem over [slam]'s
+    first frames, `warm` untraced, then `frames` traced (two BA windows);
+    device-busy share and launches a frame. Then one loop verification
+    (`_verify_loop_device` on the run's first candidate) alone."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.slam import SlamSystem, _verify_loop_device
+
+    cuda = torch.device("cuda")
+    slam = SlamSystem(sp.load_params(device=cuda), cfg, ba_every=SLAM_BA_EVERY, device=cuda)
+    seq, noises = run["frames"], run["noises"]
+    for j in range(warm):
+        slam.process(seq[j], *(() if j == 0 else noises[j - 1]))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for j in range(warm, warm + frames):
+            slam.process(seq[j], *noises[j - 1])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kern = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+    _log(f"[traced] SlamSystem.process, frames {warm}-{warm + frames - 1} (BA every {SLAM_BA_EVERY}): "
+         f"wall {wall_ms / frames:.3f} ms/frame, device busy {busy_ms / frames:.3f} ms/frame "
+         f"({100 * busy_ms / wall_ms:.1f}%), {len(kern) / frames:.0f} kernels/frame")
+    if run["verify_flat"] is not None:
+        flat = torch.from_numpy(run["verify_flat"]).to(cuda)
+        gen = torch.Generator(device=cuda).manual_seed(0)
+
+        def verify():
+            return _verify_loop_device(flat, cfg, cfg.frontend.top_n, generator=gen)
+
+        med, _ = _wall_ms(verify, 10)
+        busy, count = _kernel_events(verify, 3)
+        _log(f"[traced] loop verification (_verify_loop_device, N={cfg.frontend.top_n}): wall "
+             f"{med:.3f} ms a call, device busy {busy:.3f} ms/call, {count:.0f} kernels/call")
+
+
 def phase_profile(frames, noises, cfg, steps=3):
     """Where a tracking step's time goes on the card: torch.profiler over
     `steps` steps; prints the device-busy share of the wall time and the
@@ -1366,12 +1666,13 @@ def phase_profile_batched(streams, noises, cfg, steps=2):
          f"{len(kern) / steps:.0f} kernels/step")
 
 
-def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b, slice_calls):
+def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b, slice_calls, slam_run):
     """The profiler's numbers, taken after every untraced timing: each
     kernel's own device time, the layered stage 1's device time beside the
     stem's, each layer's device-busy time and launches per call, the
-    pairwise and backend calls' device-busy time and launches, and the
-    single and batched steps' device-busy shares and heaviest kernels."""
+    pairwise and backend calls' device-busy time and launches, the single
+    and batched steps' device-busy shares and heaviest kernels, and the
+    engine's."""
     from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
 
     for row, k in zip(rows, spec):
@@ -1402,6 +1703,7 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
         _log(f"[traced] {name}: device busy {busy:.3f} ms/call, {count:.0f} kernels/call")
     phase_profile(frames, noises, cfg)
     phase_profile_batched(streams, noises_b, cfg)
+    phase_profile_slam(cfg, slam_run)
 
 
 def _phased(label, phase, *args):
@@ -1449,8 +1751,14 @@ def main():
     noises_b = [(ransac.gumbel((STREAMS, k, m), gen_b, "cpu"),
                  ransac.gumbel((STREAMS, lo_k, m), gen_b, "cpu")) for _ in range(STREAM_FRAMES - 1)]
 
+    # Renders by orbit index, reused by [slam].
+    renders = {k: f for k, f in enumerate(frames)}
+    for s, (imgs, _) in enumerate(streams):
+        renders.update({s * ORBIT_N // STREAMS + j: f for j, f in enumerate(imgs)})
+    _log(f"[env] scenes rendered in {time.perf_counter() - t_all:.1f} s")
+
     inp = kernel_inputs(cuda, frames, noises[0], cfg, [f for f, _ in streams])
-    errs = phase_kernels(inp)
+    errs = _phased("kernels", phase_kernels, inp)
 
     kernels.reset_launch_counts()
     steps, times = track(cuda, frames[:N_FRAMES], noises, cfg)
@@ -1466,7 +1774,9 @@ def main():
     _require(launches == expected, f"launches {launches}, expected {expected}")
     check_poses(steps, gt_R, gt_t, "track")
 
+    t0 = time.perf_counter()
     cpu_steps, _ = track(torch.device("cpu"), frames[:N_FRAMES], noises, cfg)
+    _log(f"[cpu] phase wall {time.perf_counter() - t0:.1f} s")
     check_poses(cpu_steps, gt_R, gt_t, "cpu")
     for j, (g, c) in enumerate(zip(steps, cpu_steps)):
         _log(f"[cpu-vs-card] step {j}: matches {c['matches']}/{g['matches']} inliers "
@@ -1475,13 +1785,15 @@ def main():
     _require(max(_rot_deg(g["R"], c["R"]) for g, c in zip(steps, cpu_steps)) < 1.0,
              "card and CPU rotations differ by 1 deg or more")
 
-    b_times = phase_batched(streams, noises_b, cfg)
-    chunk_s = phase_chunk(frames, noises, cfg)
+    b_times = _phased("batched", phase_batched, streams, noises_b, cfg)
+    chunk_s = _phased("chunk", phase_chunk, frames, noises, cfg)
     pw_per_call, pw_inp, pw_call = _phased("pairwise", phase_pairwise, frames, orbit, cfg)
     pw_inp.update(check_pairwise_kernels(pw_inp))
     _phased("nms", phase_nms, frames, [f for f, _ in streams], cfg)
     backend_calls = {**_phased("ba", phase_ba, cfg),
                      "pose_graph.optimize": _phased("pose-graph", phase_pose_graph)}
+    slam_run = _phased("slam", phase_slam, cfg, renders)
+    _phased("slam-cpu", phase_slam_cpu, cfg, slam_run)
     single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
     batched_ms = float(np.median(b_times[1:]) * 1e3)
     _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")
@@ -1491,11 +1803,17 @@ def main():
     _log(f"[timing] chunked (K={CHUNK}) chunks {' '.join(f'{t * 1e3:.3f}' for t in chunk_s)} ms = "
          f"{' '.join(f'{CHUNK / t:.2f}' for t in chunk_s)} frames/s")
 
-    rows, spec = phase_timing(inp, launches, errs, pw_per_call, pw_inp)
+    rows, spec = _phased("timing", phase_timing, inp, launches, errs, pw_per_call, pw_inp)
     layers = step_layers(frames, noises, cfg)
-    phase_layers(layers)
-    phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b,
-                 {"pairwise_pose": pw_call, **backend_calls})
+    _phased("layers", phase_layers, layers)
+    _phased("traced", phase_traced, rows, spec, layers, frames, noises, cfg, inp, streams, noises_b,
+            {"pairwise_pose": pw_call, **backend_calls}, slam_run)
+    # The engine's path launches the same kernels at the same shapes as the
+    # tracking step (and the verification's RANSAC at M = top_n): its rows
+    # carry the [slam] run's launch counts beside the same measurements.
+    rows += [dict(r, launches=slam_run["launches"][r["name"]],
+                  shape=f"{r['shape']}; launches of the [slam] run ({SLAM_FRAMES} frames)")
+             for r in rows[:len(kernels.MODULES)]]
     _log(f"[done] {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60)

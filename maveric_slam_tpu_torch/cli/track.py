@@ -1,0 +1,84 @@
+"""Run the SLAM engine over an image sequence (the port's counterpart of
+maveric_slam_tpu/cli/track.py):
+
+  python -m maveric_slam_tpu_torch.cli.track IMAGE_DIR [--out-dir out/]
+      [--img-glob '*.png'] [--skip N] [--max-frames N] [--no-ba]
+      [--no-loop-closure] [--gt poses.txt] [--gt-offset N] [--plot]
+      [--seed N] [--device cpu]
+
+Writes KITTI-format poses (poses.txt), a PLY polyline (trajectory.ply),
+with --gt the ATE/RPE metrics (metrics.json), and with --plot a top-down
+plot (trajectory.png). It runs on the CUDA device unless `--device cpu` is
+given; `--seed` seeds the RANSAC noise. Decoding the images needs cv2 or
+PIL; the plot needs matplotlib.
+"""
+
+import argparse
+import json
+import os
+
+
+def main(argv=None) -> None:
+    parser = argparse.ArgumentParser(description=__doc__)
+    parser.add_argument("image_dir")
+    parser.add_argument("--img-glob", default="*.png")
+    parser.add_argument("--out-dir", default="out")
+    parser.add_argument("--skip", type=int, default=1)
+    parser.add_argument("--max-frames", type=int, default=None)
+    parser.add_argument("--no-ba", action="store_true")
+    parser.add_argument("--no-loop-closure", action="store_true")
+    parser.add_argument("--gt", default=None, help="KITTI GT pose file")
+    parser.add_argument("--gt-offset", type=int, default=0)
+    parser.add_argument("--plot", action="store_true")
+    parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    args = parser.parse_args(argv)
+
+    from ..config import DEFAULT_CONFIG
+    from ..data import kitti
+    from ..models import superpoint as sp
+    from ..ops.backend import resolve_device
+    from ..slam import SlamSystem
+    from ..utils import evaluation, trajectory
+
+    cfg = DEFAULT_CONFIG
+    dev = resolve_device(args.device)
+    seq = kitti.ImageSequence(args.image_dir, cfg.frontend.height, cfg.frontend.width,
+                              img_glob=args.img_glob, skip=args.skip)
+    os.makedirs(args.out_dir, exist_ok=True)
+    slam = SlamSystem(sp.load_params(device=dev), cfg, seed=args.seed,
+                      ba_every=0 if args.no_ba else 4,
+                      enable_loop_closure=not args.no_loop_closure, device=dev)
+    n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
+    with slam:
+        for i in range(n):
+            slam.process(seq[i])
+            if slam.stats and i % 10 == 0:
+                s = slam.stats[-1]
+                print(f"frame {i}/{n}: matches={s['matches']} inliers={s['inliers']}"
+                      f" scale={s['scale']:.3f}")
+        poses = slam.trajectory()
+    trajectory.save_kitti_poses(os.path.join(args.out_dir, "poses.txt"), poses)
+    trajectory.write_ply(os.path.join(args.out_dir, "trajectory.ply"), poses[:, :3, 3])
+    print(f"wrote {args.out_dir}/poses.txt ({len(poses)} poses)")
+    if slam.loop_events:
+        print(f"loop closures: {[(e.frame, e.matched_frame) for e in slam.loop_events]}")
+
+    gt = None
+    if args.gt:
+        gt = kitti.read_poses(args.gt)[args.gt_offset: args.gt_offset + len(poses)]
+        metrics = {**evaluation.ate(poses, gt), **evaluation.rpe(poses, gt)}
+        with open(os.path.join(args.out_dir, "metrics.json"), "w") as f:
+            json.dump(metrics, f, indent=2)
+        print(json.dumps(metrics, indent=2))
+
+    if args.plot:
+        from ..utils import visualization
+
+        tracks = [("estimate", poses)] + ([("ground truth", gt)] if gt is not None else [])
+        visualization.plot_trajectories(tracks, os.path.join(args.out_dir, "trajectory.png"))
+        print(f"wrote {args.out_dir}/trajectory.png")
+
+
+if __name__ == "__main__":
+    main()

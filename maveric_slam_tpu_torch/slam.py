@@ -1,0 +1,823 @@
+"""The full SLAM system on one device: tracking, windowed BA and loop
+closure (port of the single-device engine of maveric_slam_tpu/slam.py).
+
+Per frame, on the engine's device: the tracking step (frontend.tracker),
+then, with loop closure on, the BoW word assignment of the new features
+(loopclosure.vocab) and the covisibility pool's update (mapping.
+feature_pool). Everything the host consumes from a frame is packed into
+one f32 buffer (`_StepPacker`) and copied to the host once; the host side
+keeps the track table (tracks), assembles the window BA problem
+(backend.ba, solved on the device), queries and extends the keyframe BoW
+database (loopclosure.lcd), verifies loop candidates geometrically on the
+device (`_verify_loop_device`) and corrects the keyframe skeleton with a
+pose graph (backend.pose_graph).
+
+Pipelining. A frame's packed buffer is copied to pinned host memory
+without blocking, behind a CUDA event, and consumed `fetch_delay` frames
+later, so the host's bookkeeping for frame k overlaps the device work of
+the frames after it; BA solves and loop decisions are likewise applied
+when their results land. `fetch_delay=0` is fully synchronous.
+
+Randomness. The tracker state carries a `torch.Generator` seeded `seed`;
+loop verification draws its RANSAC noise from a second generator on the
+engine's device, seeded `seed + 1`. `process` takes injected tracking noise
+and `verify_noise` supplies the verifications' noise, so that tests can
+feed the JAX package's draws; the main path uses neither.
+
+Pose bookkeeping: self.poses[k] is T_w_ck (camera-to-world, KITTI format).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from .backend import ba, pose_graph
+from .config import SlamConfig
+from .frontend import tracker as trk
+from .geometry import epipolar, ransac
+from .loopclosure import lcd, vocab as vocab_lib
+from .mapping import feature_pool
+from .ops import matching
+from .ops.backend import resolve_device
+from .tracks import TrackTable
+from .utils.trajectory import compose_trajectory
+
+
+@dataclasses.dataclass
+class LoopClosureEvent:
+    frame: int
+    matched_frame: int
+    score: float
+    num_inliers: int
+
+
+class _HostCopy:
+    """A device tensor's copy to the host, started at construction (on a
+    card: non-blocking into pinned memory, behind an event); `result()`
+    waits for it and returns the numpy array."""
+
+    def __init__(self, t: torch.Tensor):
+        self._event = None
+        if t.device.type == "cuda":
+            self._host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._host.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record()
+        else:
+            self._host = t
+
+    def result(self) -> np.ndarray:
+        if self._event is not None:
+            self._event.synchronize()
+        return self._host.numpy()
+
+
+class _StepPacker:
+    """Packs every host-consumed per-frame quantity into one f32 device
+    buffer, and unpacks the host copy into an object with StepResult's
+    attribute names (plus word_ids and sightings). Every packed value is
+    exact in f32 (integers below 2^24, int8 descriptors, booleans)."""
+
+    _FIELDS = [
+        ("R", (3, 3), np.float32),
+        ("t", (3,), np.float32),
+        ("valid", (), bool),
+        ("num_matches", (), np.int32),
+        ("num_inliers", (), np.int32),
+        ("scale", (), np.float32),
+        ("desc_scale", (), np.float32),
+        ("cells_new", ("N",), np.int32),
+        ("xy_new", ("N", 2), np.float32),
+        ("matched_prev_cell", ("N",), np.int32),
+        ("match_score", ("N",), np.float32),
+        ("match_mask", ("N",), bool),
+        ("depth_top", ("N",), np.float32),
+        ("depth_top_ok", ("N",), bool),
+        ("desc_top", ("N", 256), np.int8),
+        ("word_ids", ("N",), np.int32),  # -2 sentinel when loop closure is off
+        ("sightings", ("V",), np.int32),  # zeros when loop closure is off
+    ]
+
+    def __init__(self, top_n: int, vocab: int):
+        self.sizes = {"N": top_n, "V": vocab}
+        self.slices = {}
+        off = 0
+        for name, shape, dtype in self._FIELDS:
+            shp = tuple(self.sizes.get(d, d) for d in shape)
+            n = int(np.prod(shp)) if shp else 1
+            self.slices[name] = (off, off + n, shp, dtype)
+            off += n
+        self.total = off
+
+    def pack(self, step: trk.StepResult, word_ids=None, sightings=None) -> torch.Tensor:
+        dev = step.R.device
+        vals = {name: getattr(step, name) for name, _, _ in self._FIELDS[:-2]}
+        vals["word_ids"] = (word_ids if word_ids is not None
+                            else torch.full((self.sizes["N"],), -2, dtype=torch.int32, device=dev))
+        vals["sightings"] = (sightings if sightings is not None
+                             else torch.zeros((self.sizes["V"],), dtype=torch.int32, device=dev))
+        return torch.cat([vals[name].to(torch.float32).reshape(-1) for name, _, _ in self._FIELDS])
+
+    class _View:
+        pass
+
+    def unpack(self, flat: np.ndarray):
+        v = self._View()
+        for name, (a, b, shp, dtype) in self.slices.items():
+            arr = flat[a:b].reshape(shp).astype(dtype)
+            setattr(v, name, arr if shp else arr[()])
+        if int(np.asarray(v.word_ids).reshape(-1)[0]) == -2:
+            v.word_ids = None
+            v.sightings = None
+        return v
+
+
+def _scatter_depth(state: trk.TrackerState, packed: torch.Tensor) -> trk.TrackerState:
+    """Write BA-optimized depths into the tracker state. packed: (cap, 3)
+    f32 rows [cell, depth, ok]; rows with ok = 0 go to a spare slot past the
+    grid, so they cannot collide with a real write to cell 0."""
+    n = state.depth.shape[0]
+    ok = packed[:, 2] > 0.5
+    idx = torch.where(ok, packed[:, 0].long(), n)
+    depth = torch.cat([state.depth, state.depth.new_zeros(1)]).index_put_((idx,), packed[:, 1])
+    valid = torch.cat([state.depth_valid, state.depth_valid.new_zeros(1)]).index_fill_(0, idx, True)
+    return state._replace(depth=depth[:n], depth_valid=valid[:n])
+
+
+def _window_ba_packed(flat: torch.Tensor, config: SlamConfig, iterations: int,
+                      num_anchored: int) -> torch.Tensor:
+    """Window BA from one packed f32 buffer, returning one packed buffer.
+    Layout in: R (P,3,3) | t (P,3) | X (L,3) | uv (L,P,2) | mask (L,P);
+    out: R | t | X."""
+    p, l = config.ba.num_poses, config.ba.max_landmarks
+    sizes = [p * 9, p * 3, l * 3, l * p * 2, l * p]
+    R, t, X, uv, mask = torch.split(flat, sizes)
+    problem = ba.BAProblem(
+        K=torch.from_numpy(config.working_camera.K).to(flat.device),
+        R=R.reshape(p, 3, 3), t=t.reshape(p, 3), X=X.reshape(l, 3), uv=uv.reshape(l, p, 2),
+        mask=mask.reshape(l, p) > 0.5,
+    )
+    solved, _stats = ba.bundle_adjust(problem, iterations=iterations, damping=config.ba.lm_damping,
+                                      huber_delta=config.ba.huber_delta, num_anchored=num_anchored)
+    return torch.cat([solved.R.reshape(-1), solved.t.reshape(-1), solved.X.reshape(-1)])
+
+
+def _verify_loop_device(flat: torch.Tensor, config: SlamConfig, top_n: int,
+                        gumbel_min: torch.Tensor | None = None,
+                        gumbel_lo: torch.Tensor | None = None,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """Geometric verification of a loop candidate on the buffer's device.
+
+    In: one packed f32 buffer [desc_a (N,256) | mask_a | xy_a (N,2) |
+    desc_b (N,256) | mask_b | xy_b (N,2)]; out: one packed buffer
+    [num_inliers | R (9) | t (3) | flow_med | inliers (N) | z_unit (N)].
+    The RANSAC noise is `gumbel_min` (num_hypotheses, N) and `gumbel_lo`
+    (lo hypotheses, N) when given, else drawn from `generator`."""
+    n = top_n
+    d_a, mask_a, xy_a, d_b, mask_b, xy_b = torch.split(flat, [n * 256, n, n * 2] * 2)
+    d_a, d_b = d_a.reshape(n, 256), d_b.reshape(n, 256)
+    xy_a, xy_b = xy_a.reshape(n, 2), xy_b.reshape(n, 2)
+    d_a = d_a / torch.clamp(torch.linalg.vector_norm(d_a, dim=-1, keepdim=True), min=1e-9)
+    d_b = d_b / torch.clamp(torch.linalg.vector_norm(d_b, dim=-1, keepdim=True), min=1e-9)
+    m = matching.nn_match_dot(d_a, d_b, mask_a > 0.5, mask_b > 0.5,
+                              dot_thresh=config.matcher.dot_thresh)
+    xy_b = xy_b[m.index.long()]
+    K = torch.from_numpy(config.working_camera.K).to(flat.device)
+    p1 = epipolar.normalize_points(xy_a, K)
+    p2 = epipolar.normalize_points(xy_b, K)
+    n_hyp = config.ransac.num_hypotheses
+    if gumbel_min is None:
+        gumbel_min = ransac.gumbel((n_hyp, n), generator, flat.device)
+    if gumbel_lo is None:
+        gumbel_lo = ransac.gumbel((ransac.lo_hypotheses(n_hyp), n), generator, flat.device)
+    rr = ransac.ransac_essential(p1, p2, m.mask, inlier_thresh=config.ransac.inlier_thresh,
+                                 num_hypotheses=n_hyp, gumbel_min=gumbel_min, gumbel_lo=gumbel_lo)
+    X_unit = epipolar.triangulate(rr.R, rr.t, p1, p2)
+    # Median inlier pixel displacement: the host bounds the loop edge's
+    # translation with it (an exact revisit has ~zero baseline, and its
+    # depth-ratio scale is noise).
+    disp = torch.linalg.vector_norm(xy_a - xy_b, dim=-1)
+    order = torch.sort(torch.where(rr.inliers, disp, torch.inf)).values
+    k = torch.clamp(rr.num_inliers.long() - 1, min=0) // 2
+    flow_med = torch.where(rr.num_inliers > 0, order.gather(0, k.reshape(1))[0], 0.0)
+    return torch.cat([rr.num_inliers.reshape(1).to(torch.float32), rr.R.reshape(-1), rr.t,
+                      flow_med.reshape(1), rr.inliers.to(torch.float32), X_unit[:, 2]])
+
+
+class SlamSystem:
+    """The single-device engine on `device` (None: CUDA; raises without a
+    card). `verify_noise`, if given, maps the k-th loop verification
+    (k = 0, 1, ...) to its RANSAC noise (gumbel_min, gumbel_lo)."""
+
+    def __init__(
+        self,
+        params,
+        config: SlamConfig,
+        seed: int = 0,
+        ba_every: int = 4,
+        enable_loop_closure: bool = True,
+        fetch_delay: int = 0,
+        device=None,
+        verify_noise: Optional[Callable[[int], tuple]] = None,
+    ):
+        self.device = resolve_device(device)
+        self.params = params
+        self.config = config
+        self.seed = seed
+        self.ba_every = ba_every
+        self.enable_loop_closure = enable_loop_closure
+        self.fetch_delay = fetch_delay
+        self.verify_noise = verify_noise
+        self._verify_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
+        self.verifications = 0  # loop candidates verified so far
+
+        self.state: Optional[trk.TrackerState] = None
+        self.frame_idx = -1
+        self.poses: List[np.ndarray] = []  # T_w_c per frame (4, 4)
+        self.rel_poses: List[tuple] = []  # (R, t) odometry steps T_c(i+1)_ci
+        self.tracks = TrackTable(config.frontend.num_cells, max_length=config.ba.num_poses)
+        self.stats: List[dict] = []
+        self.loop_events: List[LoopClosureEvent] = []
+        # Keyframe bookkeeping (frame 0 is always the first keyframe/anchor).
+        self.kf_frames: List[int] = [0]
+        self._last_kf = 0
+
+        # Pipeline state.
+        self._pending: List[tuple] = []  # (frame_idx, host copy, device word ids)
+        self._pending_ba: Optional[tuple] = None
+        self._pending_loops: List[tuple] = []
+        self._sightings_host: Optional[np.ndarray] = None
+        # Accepted loop-closure edges (fi, fj, R_meas, t_meas), bounded. Every
+        # pose-graph solve includes all of them: the graph is rebuilt from raw
+        # odometry each time, so a solve carrying only the newest edge would
+        # revert every earlier correction.
+        self.loop_edges: List[tuple] = []
+
+        if enable_loop_closure:
+            self.vocab = vocab_lib.load_reference_vocabulary(device=self.device)
+            self.db = lcd.create_database(config.loop.max_db_frames, config.loop.vocab_size,
+                                          device=self.device)
+            # Per-keyframe features for loop verification, aligned with the
+            # database's slots (each entry records the frame that wrote it, so
+            # a slot reused after the ring wraps is detected).
+            self.kf_store: List[Optional[dict]] = [None] * config.loop.max_db_frames
+            # Covisibility store: word -> sightings over the recent frame window.
+            self.pool = feature_pool.create(config.loop.vocab_size, window=config.pool.max_frames,
+                                            device=self.device)
+            self._packer = _StepPacker(config.frontend.top_n, config.loop.vocab_size)
+        else:
+            self._packer = _StepPacker(config.frontend.top_n, 1)
+
+    # ------------------------------------------------------------------ #
+
+    def process(self, image: np.ndarray, gumbel_min=None, gumbel_lo=None) -> None:
+        """Track one frame. `gumbel_min` (num_hypotheses, top_n) and
+        `gumbel_lo` (lo hypotheses, top_n) inject the step's RANSAC noise;
+        otherwise it is drawn from the tracker state's generator."""
+        img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
+        self.frame_idx += 1
+        if self.state is None:
+            self.state = trk.init_state(self.params, img, self.config, self.seed)
+            self.poses.append(np.eye(4))
+            return
+        noise = [None if g is None else torch.as_tensor(g, device=self.device)
+                 for g in (gumbel_min, gumbel_lo)]
+        self.state, step = trk.track_step(self.params, self.state, img, self.config, *noise)
+        if self.enable_loop_closure:
+            wa = vocab_lib.assign_words(step.desc_top, step.desc_scale, step.cells_new >= 0,
+                                        self.vocab).word_id
+            self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
+            self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
+            packed = self._packer.pack(step, wa, self.pool.num_sightings)
+        else:
+            wa = None
+            packed = self._packer.pack(step)
+        self._pending.append((self.frame_idx, _HostCopy(packed), wa))
+        while len(self._pending) > self.fetch_delay:
+            self._consume(*self._pending.pop(0))
+
+    def finish(self) -> None:
+        """Drain the pipeline: consume pending frames, apply the in-flight
+        BA solve, resolve outstanding loop-closure decisions."""
+        while self._pending:
+            self._consume(*self._pending.pop(0))
+        self._apply_pending_ba()
+        self._resolve_pending_loops(force=True)
+
+    def close(self) -> None:
+        """Drain the pipeline; the engine stays queryable (poses, stats).
+        Idempotent; also runs via the context-manager protocol."""
+        self.finish()
+
+    def __enter__(self) -> "SlamSystem":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+    # ------------------------------------------------------------------ #
+
+    def _consume(self, fidx: int, fetch: _HostCopy, wa) -> None:
+        """Host-side bookkeeping for one tracked frame: `fetch` holds the
+        packed step buffer's host copy, `wa` the device-resident word ids
+        the keyframe LCD path uses."""
+        step = self._packer.unpack(fetch.result())
+        R = np.asarray(step.R)
+        t = np.asarray(step.t)
+        self.rel_poses.append((R, t))
+        T_rel = np.eye(4)
+        T_rel[:3, :3] = R
+        T_rel[:3, 3] = t
+        self.poses.append(self.poses[-1] @ np.linalg.inv(T_rel))
+
+        if wa is not None:
+            self._sightings_host = np.asarray(step.sightings)
+
+        self.tracks.advance(
+            fidx,
+            np.asarray(step.cells_new),
+            np.asarray(step.xy_new),
+            np.asarray(step.matched_prev_cell),
+            np.asarray(step.match_score),
+            np.asarray(step.match_mask),
+            word_ids=step.word_ids,
+        )
+        self.stats.append({
+            "matches": int(step.num_matches),
+            "inliers": int(step.num_inliers),
+            "scale": float(step.scale),
+            "valid": bool(step.valid),
+        })
+
+        # Apply the previous window's BA solve once it has landed.
+        self._apply_pending_ba()
+
+        if fidx >= 3 and self.ba_every and fidx % self.ba_every == 0:
+            self._dispatch_window_ba(fidx)
+            if self.fetch_delay == 0:
+                self._apply_pending_ba()
+
+        if self.enable_loop_closure:
+            self._keyframe_step(fidx, step, wa)
+        self._resolve_pending_loops(force=self.fetch_delay == 0)
+
+    # ------------------------------------------------------------------ #
+
+    def _window_frames(self, fidx: int) -> List[int]:
+        p = self.config.ba.num_poses
+        first = max(0, fidx - p + 1)
+        return list(range(first, fidx + 1))
+
+    def _landmark_priorities(self) -> Optional[dict]:
+        """Covisibility weights from the feature pool, keyed by track id: the
+        number of recent frames in which a track's visual word was seen, so
+        persistent map words outrank one-off detections for the fixed BA
+        landmark budget. Uses the host copy of the sighting table (at most
+        fetch_delay frames stale)."""
+        if not self.enable_loop_closure or not self.tracks.words or self._sightings_host is None:
+            return None
+        tids = list(self.tracks.words.keys())
+        words = np.asarray([self.tracks.words[t] for t in tids], np.int32)
+        ok = (words >= 0) & (words < self._sightings_host.shape[0])
+        w = np.where(ok, self._sightings_host[np.where(ok, words, 0)], 0)
+        return {tid: float(w[k]) for k, tid in enumerate(tids)}
+
+    def _dispatch_window_ba(self, fidx: int) -> None:
+        frames = self._window_frames(fidx)
+        if len(frames) < 3:
+            return
+        uv, mask, tids = self.tracks.window_problem(
+            frames, self.config.ba.max_landmarks, priorities=self._landmark_priorities())
+        n_l = int((mask.sum(1) >= 2).sum())
+        if n_l < self.BA_MIN_LANDMARKS:
+            return
+
+        # Camera-from-world poses for the window.
+        T_w = np.stack([self.poses[f] for f in frames])
+        T_cw = np.linalg.inv(T_w)
+        R_cw = np.ascontiguousarray(T_cw[:, :3, :3], np.float32)
+        t_cw = np.ascontiguousarray(T_cw[:, :3, 3], np.float32)
+
+        # Landmark init: triangulate each track's first/last in-window obs.
+        X0 = self._triangulate_landmarks(uv, mask, R_cw, t_cw)
+        ok = np.isfinite(X0).all(-1)
+        mask = mask & ok[:, None]
+
+        # Pad poses to the full window size (the dense problem's shape is fixed).
+        p = self.config.ba.num_poses
+        n_real = len(frames)
+        if n_real < p:
+            pad = p - n_real
+            R_cw = np.concatenate([R_cw, np.repeat(R_cw[-1:], pad, 0)])
+            t_cw = np.concatenate([t_cw, np.repeat(t_cw[-1:], pad, 0)])
+            uv = np.concatenate([uv, np.zeros((uv.shape[0], pad, 2), np.float32)], 1)
+            mask = np.concatenate([mask, np.zeros((mask.shape[0], pad), bool)], 1)
+
+        # One upload for the whole problem and one buffer for the whole
+        # solve. Two anchors: the gauge and the monocular scale (a single
+        # anchor lets BA slide the window's scale, which shows up directly as
+        # ATE drift).
+        flat = np.concatenate([
+            R_cw.ravel(),
+            t_cw.ravel(),
+            np.nan_to_num(X0).astype(np.float32).ravel(),
+            uv.ravel(),
+            mask.astype(np.float32).ravel(),
+        ])
+        packed = _window_ba_packed(torch.from_numpy(flat).to(self.device), self.config,
+                                   self.config.ba.max_iterations, 2)
+        self._pending_ba = (frames, _HostCopy(packed), uv, mask, tids, n_real)
+
+    def _apply_pending_ba(self) -> None:
+        if self._pending_ba is None:
+            return
+        frames, fetch, uv, mask, tids, n_real = self._pending_ba
+        self._pending_ba = None
+        flat = fetch.result()
+        p = self.config.ba.num_poses
+        R_all = flat[: p * 9].reshape(p, 3, 3)
+        t_all = flat[p * 9: p * 12].reshape(p, 3)
+        X_all = flat[p * 12:].reshape(-1, 3)
+        # Write optimized poses back (cam-from-world -> cam-to-world).
+        for k, f in enumerate(frames):
+            T = np.eye(4)
+            T[:3, :3] = R_all[k].T
+            T[:3, 3] = -R_all[k].T @ t_all[k]
+            self.poses[f] = T
+
+        # Feed optimized structure back into the tracker's depth map: the
+        # scale chain re-anchors on BA-corrected depths instead of drifting
+        # on raw two-view triangulations.
+        self._feedback_landmarks(R_all, t_all, X_all, uv, mask, tids, n_real)
+
+    # Depth write-back gates: landmarks must reproject within FB_ERR_PX in
+    # the current frame and carry at least FB_MIN_OBS in-window observations.
+    FB_ERR_PX = 1.0
+    FB_MIN_OBS = 3
+    # Minimum well-observed landmarks before a window BA solve is worth
+    # dispatching.
+    BA_MIN_LANDMARKS = 16
+
+    def _feedback_landmarks(self, R_all, t_all, X_opt, uv, mask, tids, n_real: int) -> None:
+        max_err_px = self.FB_ERR_PX
+        mask = np.asarray(mask)
+        obs_last = mask[:, n_real - 1] & (mask.sum(1) >= self.FB_MIN_OBS)
+        if not obs_last.any():
+            return
+        R_last = R_all[n_real - 1]  # cam-from-world
+        t_last = t_all[n_real - 1]
+        p_cam = X_opt @ R_last.T + t_last
+        z = p_cam[:, 2]
+
+        # Only feed back landmarks BA explains well in the current frame: a
+        # loose write-back drags the scale chain toward badly initialized or
+        # diverged points.
+        K = self.config.working_camera.K
+        with np.errstate(divide="ignore", invalid="ignore"):
+            u = K[0, 0] * p_cam[:, 0] / z + K[0, 2]
+            v = K[1, 1] * p_cam[:, 1] / z + K[1, 2]
+        err = np.hypot(u - np.asarray(uv)[:, n_real - 1, 0], v - np.asarray(uv)[:, n_real - 1, 1])
+        good = (
+            obs_last
+            & (np.asarray(tids) >= 0)
+            & (z > 0.1)
+            & (z < 500.0)
+            & np.isfinite(err)
+            & (err < max_err_px)
+        )
+        if not good.any():
+            return
+
+        cell_of_tid = {int(tid): c for c, tid in enumerate(self.tracks.cell_to_track) if tid >= 0}
+        tids = np.asarray(tids)
+        cap = self.config.ba.max_landmarks
+        packed = np.zeros((cap, 3), np.float32)
+        k = 0
+        for l in np.nonzero(good)[0]:
+            c = cell_of_tid.get(int(tids[l]))
+            if c is None:
+                continue
+            packed[k] = (c, z[l], 1.0)
+            k += 1
+        if k:
+            self.state = _scatter_depth(self.state, torch.from_numpy(packed).to(self.device))
+
+    def _triangulate_landmarks(self, uv, mask, R_cw, t_cw) -> np.ndarray:
+        """Two-view midpoint triangulation per landmark from its first and
+        last in-window observation, in numpy (a closed-form 2x2 solve)."""
+        L, P = mask.shape
+        first = np.argmax(mask, axis=1)
+        last = P - 1 - np.argmax(mask[:, ::-1], axis=1)
+        K = self.config.working_camera.K
+        fx, fy, cx, cy = K[0, 0], K[1, 1], K[0, 2], K[1, 2]
+
+        def norm(uv_sel):
+            return np.stack([(uv_sel[..., 0] - cx) / fx, (uv_sel[..., 1] - cy) / fy], -1)
+
+        p1 = norm(uv[np.arange(L), first])
+        p2 = norm(uv[np.arange(L), last])
+        # Relative pose cam_first -> cam_last.
+        R1, t1 = R_cw[first], t_cw[first]
+        R2, t2 = R_cw[last], t_cw[last]
+        R_rel = np.einsum("lij,lkj->lik", R2, R1)  # R2 @ R1^T
+        t_rel = t2 - np.einsum("lij,lj->li", R_rel, t1)
+
+        # Ray midpoint (the formulation of geometry.epipolar's midpoint).
+        a = np.concatenate([p1, np.ones((L, 1), np.float32)], -1)
+        d2 = np.concatenate([p2, np.ones((L, 1), np.float32)], -1)
+        b = np.einsum("lji,lj->li", R_rel, d2)
+        c2 = -np.einsum("lji,lj->li", R_rel, t_rel)
+        aa = np.sum(a * a, -1)
+        bb = np.sum(b * b, -1)
+        ab = np.sum(a * b, -1)
+        ac = np.sum(a * c2, -1)
+        bc = np.sum(b * c2, -1)
+        den = aa * bb - ab * ab
+        den = np.where(np.abs(den) < 1e-12, 1e-12, den)
+        s = (ac * bb - bc * ab) / den
+        u2 = (ac * ab - bc * aa) / den
+        X_c1 = 0.5 * (s[:, None] * a + c2 + u2[:, None] * b)
+        # cam-1 -> world.
+        X_w = np.einsum("lji,lj->li", R_cw[first], X_c1 - t_cw[first])
+        bad = (X_c1[:, 2] < 0.1) | (X_c1[:, 2] > 500)
+        X_w[bad] = np.nan
+        return X_w.astype(np.float32)
+
+    # ------------------------------------------------------------------ #
+    # Keyframing + loop closure
+    # ------------------------------------------------------------------ #
+
+    def _is_keyframe(self, fidx: int, num_inliers: int) -> bool:
+        kc = self.config.keyframe
+        since = fidx - self._last_kf
+        if since < kc.min_interval:
+            return False
+        if since >= kc.max_interval:
+            return True
+        ratio = num_inliers / max(self.config.frontend.top_n, 1)
+        return ratio < kc.min_match_ratio
+
+    def _keyframe_step(self, fidx: int, step, wa: torch.Tensor) -> None:
+        if not self._is_keyframe(fidx, int(step.num_inliers)):
+            return
+        self._last_kf = fidx
+        cfg = self.config.loop
+        res = lcd.query(self.db, wa, current_frame=fidx, min_frame_gap=cfg.min_frame_gap,
+                        min_score=cfg.min_score)
+        slot = self.db.next_slot
+        self.db = lcd.add_frame(self.db, wa, fidx)
+        packed = torch.stack([res.best.to(torch.float32), res.best_frame.to(torch.float32),
+                              res.best_score])
+        cur_entry = {
+            "frame": fidx,
+            "desc": np.asarray(step.desc_top),
+            "xy": np.asarray(step.xy_new),
+            "mask": np.asarray(step.cells_new) >= 0,
+            # Metric feature depths in this keyframe's camera: the loop edge
+            # recovers its translation scale from these (depth ratio against
+            # the unit-baseline triangulation of the loop pair).
+            "depth": np.asarray(step.depth_top),
+            "depth_ok": np.asarray(step.depth_top_ok),
+        }
+        self.kf_store[slot] = cur_entry
+        self.kf_frames.append(fidx)
+        self._pending_loops.append((fidx, _HostCopy(packed), cur_entry))
+
+    def _resolve_pending_loops(self, force: bool = False) -> None:
+        """Read the LCD query results that have had `fetch_delay` frames to
+        land; verify and correct on hits."""
+        remaining = []
+        consumed_upto = self.frame_idx - len(self._pending)
+        for kf_frame, res, cur_entry in self._pending_loops:
+            if not force and consumed_upto - kf_frame < self.fetch_delay:
+                remaining.append((kf_frame, res, cur_entry))
+                continue
+            r = res.result()  # (3,) [best, best_frame, best_score]
+            best_slot = int(r[0])
+            if best_slot < 0:
+                continue
+            entry = self.kf_store[best_slot]
+            matched_frame = int(r[1])
+            if entry is None or entry["frame"] != matched_frame:
+                continue  # stale slot (overwritten since scoring): skip
+            accepted = self._verify_and_close_loop(entry, cur_entry, kf_frame, float(r[2]))
+            if accepted:
+                self.loop_events.append(accepted)
+        self._pending_loops = remaining
+
+    def _verify_loop(self, flat: np.ndarray) -> np.ndarray:
+        """`_verify_loop_device` on the engine's device with this
+        verification's noise; its packed result on the host."""
+        noise = self.verify_noise(self.verifications) if self.verify_noise else (None, None)
+        self.verifications += 1
+        noise = [None if g is None else torch.as_tensor(g, device=self.device) for g in noise]
+        out = _verify_loop_device(torch.from_numpy(flat).to(self.device), self.config,
+                                  self.config.frontend.top_n, *noise, generator=self._verify_gen)
+        return out.cpu().numpy()
+
+    def _verify_and_close_loop(self, entry: dict, cur_entry: dict, cur: int,
+                               score: float) -> Optional[LoopClosureEvent]:
+        """Geometric check of an LCD candidate + pose-graph correction."""
+        matched_frame = entry["frame"]
+        n = self.config.frontend.top_n
+        flat = np.concatenate([
+            entry["desc"].astype(np.float32).ravel(),
+            entry["mask"].astype(np.float32),
+            entry["xy"].astype(np.float32).ravel(),
+            cur_entry["desc"].astype(np.float32).ravel(),
+            cur_entry["mask"].astype(np.float32),
+            cur_entry["xy"].astype(np.float32).ravel(),
+        ])
+        out = self._verify_loop(flat)
+        n_in = int(out[0])
+        if n_in < 30:
+            return None
+
+        # Loop edge measurement T_c_matched_c_cur: rotation and translation
+        # direction from RANSAC. The monocular translation magnitude comes
+        # from a depth ratio: the keyframe's stored metric feature depths over
+        # the unit-baseline depths of the loop pair, median over the good
+        # points. Scaling by the current pose estimate instead would bake the
+        # accumulated drift into the measurement, leaving the pose graph
+        # nothing to correct.
+        R_lc = out[1:10].reshape(3, 3)  # p_cur = R p_matched + t
+        t_dir = out[10:13]
+        flow_med_px = float(out[13])
+        inliers = out[14: 14 + n] > 0.5
+        z_unit = out[14 + n: 14 + 2 * n]
+        good = (
+            inliers
+            & entry["depth_ok"]
+            & (z_unit > 1e-3)
+            & (z_unit < 1e3)
+            & (entry["depth"] > 0.1)
+        )
+        T_guess = np.linalg.inv(self.poses[matched_frame]) @ self.poses[cur]
+        guess_norm = float(np.linalg.norm(T_guess[:3, 3]))
+        if good.sum() >= 8:
+            t_scale = float(np.median(entry["depth"][good] / z_unit[good]))
+            # Plausibility clamp: a near-zero-baseline revisit triangulates at
+            # huge unit depths, and one bad depth ratio can claim a huge loop
+            # translation. The true magnitude cannot exceed the drifted
+            # estimate plus a few odometry steps.
+            recent = [np.linalg.norm(t) for _, t in self.rel_poses[-10:]]
+            step_scale = float(np.median(recent)) if recent else 1.0
+            if not np.isfinite(t_scale):
+                t_scale = guess_norm
+            t_scale = min(t_scale, guess_norm + 5.0 * step_scale)
+            # Observability bound: translation-induced flow is at most the
+            # total flow, so the baseline cannot exceed roughly
+            # flow_px * depth / f; a near-zero-flow revisit pins the edge's
+            # translation near zero, its ground truth.
+            K = self.config.working_camera.K
+            med_depth = float(np.median(entry["depth"][good]))
+            t_scale = min(t_scale, 1.5 * flow_med_px * med_depth / float(K[0, 0]) + 0.05)
+        else:
+            # Fallback: the magnitude of the current estimate (drift and all),
+            # better than dropping the rotation constraint.
+            t_scale = guess_norm
+        t_lc = t_dir * t_scale
+        R_m_lc = R_lc.T
+        t_m_lc = -R_lc.T @ t_lc
+        self.loop_edges.append((matched_frame, cur, R_m_lc, t_m_lc))
+        if len(self.loop_edges) > self.MAX_LOOP_EDGES:
+            # Evict by keeping the longest-range edges (they anchor the
+            # trajectory across epochs, which odometry cannot) plus the newest
+            # few for local consistency.
+            newest = self.loop_edges[-8:]
+            rest = sorted(self.loop_edges[:-8], key=lambda e: e[1] - e[0],
+                          reverse=True)[: self.MAX_LOOP_EDGES - 8]
+            self.loop_edges = sorted(rest + newest, key=lambda e: e[1])
+        self._optimize_skeleton_graph(matched_frame, cur)
+        return LoopClosureEvent(frame=cur, matched_frame=matched_frame, score=score,
+                                num_inliers=n_in)
+
+    # -- bounded pose-graph correction --------------------------------- #
+
+    def _skeleton_nodes(self, matched_frame: int, cur: int) -> List[int]:
+        """Keyframe node set for the loop correction, capped at
+        max_graph_nodes by stride subsampling (the loop endpoints and the
+        anchor frame 0 always survive)."""
+        edge_ends = {f for e in self.loop_edges for f in (e[0], e[1])}
+        forced = edge_ends | {0, matched_frame, cur}
+        nodes = sorted(f for f in (set(self.kf_frames) | forced) if f < len(self.poses))
+        cap = self.config.loop.max_graph_nodes
+        if len(nodes) <= cap:
+            return nodes
+        stride = -(-len(nodes) // cap)  # ceil
+        keep = set(nodes[::stride]) | forced | {nodes[-1]}
+        return sorted(f for f in keep if f < len(self.poses))
+
+    def _compose_rel(self, a: int, b: int) -> np.ndarray:
+        """Raw odometry composition T_cb_ca (a < b) from rel_poses."""
+        T = np.eye(4)
+        for k in range(a, b):
+            R, t = self.rel_poses[k]  # T_c(k+1)_ck
+            M = np.eye(4)
+            M[:3, :3] = R
+            M[:3, 3] = t
+            T = M @ T
+        return T
+
+    # Bounded memory of accepted loop edges: every solve re-applies all of
+    # them (the graph is rebuilt from raw odometry each event).
+    MAX_LOOP_EDGES = 24
+
+    def _optimize_skeleton_graph(self, matched_frame: int, cur: int) -> None:
+        # A BA solve dispatched from an earlier frame may still be in flight;
+        # apply it to the (pre-correction) trajectory it was optimized against
+        # before correcting, or it would later overwrite corrected window
+        # poses with pre-correction ones.
+        self._apply_pending_ba()
+
+        # Correction gate: skip the solve while every retained loop edge
+        # already agrees with the trajectory to within the gate; re-optimizing
+        # against agreeing-but-noisy edges only jitters the poses.
+        gate = self.config.loop.correction_gate_m
+        residuals = []
+        for fi, fj, _R_lc, t_lc in self.loop_edges:
+            if fi >= len(self.poses) or fj >= len(self.poses):
+                continue
+            T_ij = np.linalg.inv(self.poses[fi]) @ self.poses[fj]
+            residuals.append(float(np.linalg.norm(T_ij[:3, 3] - t_lc)))
+        if not residuals or max(residuals) < gate:
+            return
+
+        nodes = self._skeleton_nodes(matched_frame, cur)
+        n = len(nodes)
+        node_pos = {f: k for k, f in enumerate(nodes)}
+
+        # Odometry edges between consecutive skeleton nodes: the composed raw
+        # relative motion, inverted to the graph's T_ci_cj convention.
+        edge_i, edge_j, R_meas, t_meas, weight = [], [], [], [], []
+        for k in range(n - 1):
+            a, b = nodes[k], nodes[k + 1]
+            T_ab = np.linalg.inv(self._compose_rel(a, b))
+            edge_i.append(k)
+            edge_j.append(k + 1)
+            R_meas.append(T_ab[:3, :3])
+            t_meas.append(T_ab[:3, 3])
+            weight.append(1.0)
+        # Every retained loop edge whose endpoints are skeleton nodes (they are
+        # forced into the node set).
+        for fi, fj, R_lc, t_lc in self.loop_edges:
+            if fi in node_pos and fj in node_pos:
+                edge_i.append(node_pos[fi])
+                edge_j.append(node_pos[fj])
+                R_meas.append(R_lc)
+                t_meas.append(t_lc)
+                weight.append(5.0)
+
+        # Pad nodes and edges to power-of-two buckets, as the JAX package
+        # does: dummy nodes are identity poses touched only by the LM
+        # damping; dummy edges carry weight 0.
+        n_pad = max(8, 1 << (n - 1).bit_length())
+        e_pad = n_pad + self.MAX_LOOP_EDGES + 8
+        T_old = np.stack([self.poses[f] for f in nodes])
+        T_old_p = np.concatenate([T_old, np.tile(np.eye(4), (n_pad - n, 1, 1))], axis=0)
+        ne = len(edge_i)
+        edge_i = np.pad(np.asarray(edge_i, np.int64), (0, e_pad - ne))
+        edge_j = np.pad(np.asarray(edge_j, np.int64), (0, e_pad - ne))
+        R_meas = np.concatenate([np.stack(R_meas), np.tile(np.eye(3), (e_pad - ne, 1, 1))], axis=0)
+        t_meas = np.concatenate([np.stack(t_meas), np.zeros((e_pad - ne, 3))], axis=0)
+        weight = np.pad(np.asarray(weight, np.float32), (0, e_pad - ne))
+
+        def dev(a, dtype=torch.float32):
+            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+
+        graph = pose_graph.PoseGraph(
+            R=dev(T_old_p[:, :3, :3]), t=dev(T_old_p[:, :3, 3]),
+            edge_i=dev(edge_i, torch.int64), edge_j=dev(edge_j, torch.int64),
+            R_meas=dev(R_meas), t_meas=dev(t_meas), weight=dev(weight),
+        )
+        opt, _costs = pose_graph.optimize(graph, iterations=8)
+        R_new = opt.R.cpu().numpy()[:n]
+        t_new = opt.t.cpu().numpy()[:n]
+
+        # Rigid ride-along: every pose attaches to the nearest preceding
+        # skeleton node and moves by that node's correction.
+        T_new = np.tile(np.eye(4), (n, 1, 1))
+        T_new[:, :3, :3] = R_new
+        T_new[:, :3, 3] = t_new
+        deltas = T_new @ np.linalg.inv(T_old)  # (n, 4, 4) world-side
+        node_arr = np.asarray(nodes)
+        for f in range(len(self.poses)):
+            k = int(np.searchsorted(node_arr, f, side="right") - 1)
+            self.poses[f] = deltas[k] @ self.poses[f]
+
+    # ------------------------------------------------------------------ #
+
+    def trajectory(self) -> np.ndarray:
+        self.finish()
+        return np.stack(self.poses)
+
+    def odometry_trajectory(self) -> np.ndarray:
+        """Raw odometry chain (no BA or loop corrections)."""
+        self.finish()
+        R = [p[0] for p in self.rel_poses]
+        t = [p[1] for p in self.rel_poses]
+        return compose_trajectory(R, t)

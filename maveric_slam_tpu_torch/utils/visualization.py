@@ -1,10 +1,11 @@
 """Visualization (the port's copy of the parts of
 maveric_slam_tpu/utils/visualization.py its entry points use): match
-overlays written as PNGs. cv2 is imported only when drawing."""
+overlays and top-down trajectory plots written as PNGs. cv2 and matplotlib
+are imported only when drawing."""
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -44,3 +45,24 @@ def draw_matches(
     if out_path:
         cv2.imwrite(out_path, canvas)
     return canvas
+
+
+def plot_trajectories(trajectories: List[Tuple[str, np.ndarray]], out_path: str) -> None:
+    """Top-down (x, z) plot of named (N, 4, 4) pose arrays, written to
+    `out_path`."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    fig, ax = plt.subplots(figsize=(8, 8))
+    for name, poses in trajectories:
+        p = poses[:, :3, 3]
+        ax.plot(p[:, 0], p[:, 2], label=name, marker=".", markersize=3)
+    ax.set_xlabel("x [m]")
+    ax.set_ylabel("z [m]")
+    ax.axis("equal")
+    ax.legend()
+    ax.grid(True, alpha=0.3)
+    fig.savefig(out_path, dpi=120, bbox_inches="tight")
+    plt.close(fig)

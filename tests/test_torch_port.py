@@ -68,6 +68,16 @@ def test_entry_points_refuse_missing_cuda():
     params = sp.load_params(device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         Tracker(params, torch_config.DEFAULT_CONFIG)
+    from maveric_slam_tpu_torch.cli import track
+    from maveric_slam_tpu_torch.loopclosure import vocab
+    from maveric_slam_tpu_torch.slam import SlamSystem
+
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SlamSystem(params, torch_config.DEFAULT_CONFIG)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vocab.load_reference_vocabulary()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        track.main([REPO])  # before it reads a frame
 
 
 def test_unported_options_raise():

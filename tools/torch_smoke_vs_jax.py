@@ -3,6 +3,8 @@ port's, on the CPU: where chip_smoke.py's bars against ground truth come
 from.
 
     JAX_PLATFORMS=cpu python tools/torch_smoke_vs_jax.py [stream0] [pairwise] [ba] [pose-graph]
+        [slam [--size 96x320|192x640] [--frames N] [--fetch-delay D] [--eager] [--port]
+         [--port-ba]]
 
 - stream0: chip_smoke.py's batched stream 0 (orbit frames 0-5 at 192x640,
   RANSAC noise from torch.Generator().manual_seed(1) for all 16 streams)
@@ -15,6 +17,18 @@ from.
   iterations); the position errors before and after; then the port's
   solve with the edges in ORDERS seeded orders against its own, the
   spread behind chip_smoke.py's card-against-CPU bars.
+- slam: the JAX SlamSystem (jit, its own noise) over a closing orbit: the
+  full engine's and the odometry's ATE, the loop closures, the inlier
+  counts. --size 96x320 (the default) is tests/test_torch_slam.py's 125-frame
+  orbit, and the port also runs there on the CPU with the JAX engine's noise
+  (per-frame count and word differences, ATE, loop pairs); --size 192x640 is
+  chip_smoke.py's [slam] scene (250 frames), where the port runs only with
+  --port. --frames cuts the run, --fetch-delay sets the engines'. --eager
+  also runs the JAX engine with jit disabled and prints, per odometry step,
+  the gaps between JAX jit, JAX eager and the port (JAX's own jit/eager
+  spread; ~15 s a frame at 96x320): with --frames 13 the source of
+  tests/test_torch_slam.py's odometry bar. --port-ba also runs the JAX engine
+  with its window BA solved by the port's (`_window_ba_packed` on the CPU).
 
 JAX's RANSAC draws its noise from a PRNG key; here a stand-in for
 `jax.random` inside its RANSAC module hands it the port's noise instead, so
@@ -31,6 +45,7 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tests"))  # test_torch_slam's engine runners
 
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
@@ -220,12 +235,113 @@ def _gaps(g):
     return ", ".join(f"{k} {v:.3g}" for k, v in g.items())
 
 
+def _slam_scene(size):
+    """(JAX config, port config, frames, ground truth) of the slam mode."""
+    if size == "96x320":
+        import test_torch_slam as ts
+
+        frames, gt = ts.orbit(ts.N_ORBIT)
+        return ts.JCFG, ts.TCFG, frames, gt
+    tcfg = smoke._config()
+    orbit = synthetic.orbit_poses(smoke.ORBIT_N)[np.arange(smoke.SLAM_FRAMES) % smoke.ORBIT_N]
+    frames = [synthetic.render_box_room(tcfg.working_camera.K, p, smoke.H, smoke.W) for p in orbit]
+    return _jax_config(), tcfg, frames, orbit
+
+
+def _engine_summary(label, slam, gt):
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    full = evaluation.ate(slam.trajectory(), gt)["ate_rmse"]
+    odo = evaluation.ate(slam.odometry_trajectory(), gt)["ate_rmse"]
+    inl = [s["inliers"] for s in slam.stats]
+    print(f"[slam] {label}: ATE full {full:.4f} m, odometry {odo:.4f} m (ratio {full / odo:.4f}); "
+          f"valid {sum(s['valid'] for s in slam.stats)}/{len(slam.stats)} (not valid: frames "
+          f"{[k + 1 for k, s in enumerate(slam.stats) if not s['valid']]}), inliers median "
+          f"{np.median(inl)}, min {min(inl)}; loop closures (frame, matched, inliers) "
+          f"{[(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events]}", flush=True)
+
+
+def _step_gaps(a, b):
+    return (max(float(np.abs(x[0] - y[0]).max()) for x, y in zip(a.rel_poses, b.rel_poses)),
+            max(float(np.abs(x[1] - y[1]).max()) for x, y in zip(a.rel_poses, b.rel_poses)))
+
+
+def _jax_with_port_ba(jp, frames, fetch_delay, tcfg):
+    """The JAX engine with every window BA solved by the port's."""
+    import test_torch_slam as ts
+    from maveric_slam_tpu import slam as jslam
+    from maveric_slam_tpu_torch import slam as tslam
+
+    solve = jslam._window_ba_packed
+    jslam._window_ba_packed = lambda flat, config, iterations, num_anchored: jnp.asarray(
+        tslam._window_ba_packed(torch.from_numpy(np.array(flat)), tcfg, iterations,
+                                num_anchored).numpy())
+    try:
+        return ts.run_jax(jp, frames, fetch_delay)
+    finally:
+        jslam._window_ba_packed = solve
+
+
+def slam(jp, tp, size, frames_n, fetch_delay, eager, port, port_ba):
+    import test_torch_slam as ts
+
+    jcfg, tcfg, frames, gt = _slam_scene(size)
+    frames, gt = frames[:frames_n], gt[:frames_n]
+    ts.JCFG, ts.TCFG = jcfg, tcfg  # the engines' configs for this scene
+    j = ts.run_jax(jp, frames, fetch_delay)
+    _engine_summary(f"JAX (jit), {len(frames)} frames at {size}, fetch_delay {fetch_delay}", j, gt)
+    e = t = None
+    if eager:
+        with jax.disable_jit():
+            e = ts.run_jax(jp, frames, fetch_delay)
+        _engine_summary("JAX (jit disabled)", e, gt)
+    if port_ba:
+        _engine_summary("JAX (jit) with the port's window BA",
+                        _jax_with_port_ba(jp, frames, fetch_delay, tcfg), gt)
+    if size == "96x320" or port:
+        t = ts.run_port(tp, frames, fetch_delay)
+        _engine_summary("port (CPU, JAX's noise)", t, gt)
+    if e is not None:
+        for k in range(len(j.rel_poses)):
+            gaps = [(n, a.rel_poses[k], b.rel_poses[k]) for n, a, b in
+                    (("eager-jit", e, j), ("port-jit", t, j), ("port-eager", t, e)) if a and b]
+            print(f"[slam] step {k}: " + "; ".join(
+                f"{n} max |dR| {np.abs(x[0] - y[0]).max():.3g} |dt| {np.abs(x[1] - y[1]).max():.3g}"
+                for n, x, y in gaps), flush=True)
+        print(f"[slam] largest over the steps: eager-jit |dR| %.3g |dt| %.3g" % _step_gaps(e, j)
+              + ("" if t is None else "; port-jit |dR| %.3g |dt| %.3g" % _step_gaps(t, j)))
+    if t is not None:
+        for k, (a, b) in enumerate(zip(j.views, t.views)):
+            diff = [n for n in ("num_matches", "num_inliers", "valid")
+                    if int(getattr(a, n)) != int(getattr(b, n))]
+            if ts._word_pairs(a) != ts._word_pairs(b):
+                diff.append("words")
+            if not np.array_equal(a.sightings, b.sightings):
+                diff.append("sightings")
+            order = "" if np.array_equal(a.word_ids, b.word_ids) else " (top-N order differs)"
+            if diff or order:
+                print(f"[slam] frame {k + 1}: differs in {diff}{order}; inliers jax "
+                      f"{int(a.num_inliers)} port {int(b.num_inliers)}")
+
+
 def main():
-    what = sys.argv[1:] or ["stream0", "pairwise", "ba", "pose-graph"]
-    jp, tp = _params() if {"stream0", "pairwise"} & set(what) else (None, None)
-    for w in what:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("what", nargs="*", default=["stream0", "pairwise", "ba", "pose-graph"])
+    ap.add_argument("--size", default="96x320", choices=["96x320", "192x640"])
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--fetch-delay", type=int, default=0)
+    ap.add_argument("--eager", action="store_true")
+    ap.add_argument("--port", action="store_true")
+    ap.add_argument("--port-ba", action="store_true")
+    args = ap.parse_args()
+    jp, tp = _params() if {"stream0", "pairwise", "slam"} & set(args.what) else (None, None)
+    for w in args.what:
         {"stream0": lambda: stream0(jp, tp), "pairwise": lambda: pairwise(jp, tp), "ba": ba,
-         "pose-graph": pose_graph}[w]()
+         "pose-graph": pose_graph,
+         "slam": lambda: slam(jp, tp, args.size, args.frames, args.fetch_delay, args.eager,
+                              args.port, args.port_ba)}[w]()
 
 
 if __name__ == "__main__":
