@@ -42,7 +42,8 @@ Phases, in order; any failure raises and exits non-zero:
      P = 8, L = 1024, 10 iterations (cost never rising, RMSE within the JAX
      package's, sparse equal to dense, card against CPU); [pose-graph]
      `pose_graph.optimize` at 256 nodes, 288 edges, 8 iterations (drift
-     reduced, card against CPU); each timed a call (host clock);
+     reduced, card against CPU, two calls on the card bitwise equal); each
+     timed a call (host clock);
   5c. [slam] drive `SlamSystem` (the engine behind the `track` CLI, loop
      closure on, BA every 4 frames, synchronous) over 250 frames of the
      closing orbit at DEFAULT_CONFIG's width, with its own launch counts
@@ -52,6 +53,20 @@ Phases, in order; any failure raises and exits non-zero:
      [slam-cpu] its first 12 frames through the port on the CPU with the
      same noise (word ids, pool sightings and counts equal), and
      `assign_words` / `lcd.query` card against CPU on the run's data;
+  5d. [resume] the [slam] run checkpointed after frame 180 (before its
+     first loop closure) with `utils.checkpoint.save`, restored into a
+     fresh engine on the card that runs frames 181-249 (all five loop
+     closures) with the same noise: bitwise equal to the unbroken run in
+     everything a checkpoint holds and in both trajectories; save and
+     restore wall, the checkpoint's size; [elastic] `ElasticRunner` on the
+     card over 12 orbit frames (the generators' noise, no BA, no loop
+     closure): unbroken, a crash injected at frame 7 and a hang at frame 6
+     under a deadline set from the measured steps, each recovered with
+     exactly one restart and a trajectory bitwise equal to the unbroken
+     run's; recovery wall (restore + replay); [host-pool] the native host
+     pool built with g++ on this machine, the 100-frame stress sequence
+     with its invariant held on every frame, `observe_batch` host time, and
+     the ASan/UBSan stress driver where the toolchain has sanitizers;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -150,6 +165,9 @@ SLAM_GAP_BAR = 12  # |frame - matched_frame - ORBIT_N| of every loop closure
 SLAM_MIN_MEDIAN_INLIERS, SLAM_MIN_LOOP_INLIERS = 40, 30
 SLAM_ATE_RATIO = 0.85  # full-engine ATE below this share of the odometry-only ATE
 SLAM_CPU_FRAMES = 12  # [slam-cpu]: the run's first frames through the port on the CPU
+SLAM_SAVE_AT = 180  # [resume]: the [slam] run's checkpoint, before its first loop closure (194)
+ELASTIC_FRAMES, ELASTIC_EVERY = 12, 4  # [elastic]: orbit frames, checkpoint interval
+ELASTIC_CRASH_AT, ELASTIC_HANG_AT = 7, 6  # the frames of the injected crash and hang
 
 
 def _log(*a):
@@ -1019,8 +1037,9 @@ def graph_gaps(a, b, n):
 def phase_pose_graph():
     """`pose_graph.optimize` at slam.py's size (256 nodes, 288 edges with
     weight-0 padding, 8 iterations) on `loop_graph`: drift reduced as
-    tests/test_pose_graph.py requires, card against CPU. Returns the call
-    for the profiler."""
+    tests/test_pose_graph.py requires, card against CPU, two calls on the
+    card bitwise equal ([resume] needs it). Returns the call for the
+    profiler."""
     from maveric_slam_tpu_torch.backend import pose_graph
 
     fields, (_, t_gt) = loop_graph()
@@ -1051,6 +1070,10 @@ def phase_pose_graph():
     def call():
         return pose_graph.optimize(graph, iterations=GRAPH_ITERS)
 
+    again, again_costs = call()
+    same = all(torch.equal(x, y) for x, y in ((opt.R, again.R), (opt.t, again.t), (costs, again_costs)))
+    _log(f"[pose-graph] two calls on one graph on the card: {'bitwise equal' if same else 'DIFFER'}")
+    _require(same, "pose graph: two calls on one graph differ on the card")
     med, _ = _wall_ms(call, 10)
     med1, _ = _wall_ms(lambda: pose_graph.optimize(graph, iterations=1), 10)
     _log(f"[pose-graph] wall {med:.3f} ms a call of {GRAPH_ITERS} iterations, "
@@ -1081,16 +1104,18 @@ def slam_scene(cfg, renders):
     return [renders[k] for k in idx], orbit[idx], noises
 
 
-def run_slam(dev, frames, noises, cfg):
+def run_slam(dev, frames, noises, cfg, save_at=None, ckpt_dir=None):
     """`SlamSystem` on `dev` over the frames with the tracking noise
     injected; launch counts set to 0 just before it starts. Returns the
     engine, a record per frame (host wall, launch counts after it, its packed
     step's word ids, cells, descriptors and sightings) and the wall times of
     each window BA (dispatch + apply) and loop verification (+ pose graph
-    when accepted)."""
+    when accepted). With `save_at`, the engine is checkpointed into
+    `ckpt_dir` after that frame, outside the frame's wall (spans["save"])."""
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.ops import kernels
     from maveric_slam_tpu_torch.slam import SlamSystem
+    from maveric_slam_tpu_torch.utils import checkpoint
 
     cuda = dev.type == "cuda"
 
@@ -1143,6 +1168,10 @@ def run_slam(dev, frames, noises, cfg):
         slam.process(f, *(() if j == 0 else noises[j - 1]))
         sync()
         record.append({"wall": time.perf_counter() - t0, "launches": kernels.launch_counts()})
+        if j == save_at:
+            t0 = time.perf_counter()
+            checkpoint.save(slam, ckpt_dir)
+            spans["save"] = time.perf_counter() - t0
     slam.finish()
     launches = kernels.launch_counts()
     for r, v in zip(record[1:], views):
@@ -1173,9 +1202,12 @@ def phase_slam(cfg, renders):
     records for [slam-cpu] and the profiler."""
     from maveric_slam_tpu_torch.utils import evaluation
 
+    import tempfile
+
     frames, gt, noises = slam_scene(cfg, renders)
     cuda = torch.device("cuda")
-    slam, record, launches, ba_s, spans = run_slam(cuda, frames, noises, cfg)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    slam, record, launches, ba_s, spans = run_slam(cuda, frames, noises, cfg, SLAM_SAVE_AT, ckpt)
     n, v = len(frames), slam.verifications
     for counts, js in sorted(_launch_patterns(record).items(), key=lambda kv: -len(kv[1])):
         _log(f"[slam] {len(js)} frames launch {counts} each: frames "
@@ -1230,7 +1262,7 @@ def phase_slam(cfg, renders):
     _require(all(ok for ok, _ in checks), "slam: " + "; ".join(w for ok, w in checks if not ok))
     flat = spans["flats"][0] if spans["flats"] else None
     return {"frames": frames, "noises": noises, "slam": slam, "record": record,
-            "launches": launches, "verify_flat": flat}
+            "launches": launches, "verify_flat": flat, "ckpt": ckpt, "save_s": spans["save"]}
 
 
 def phase_slam_cpu(cfg, run):
@@ -1292,6 +1324,238 @@ def phase_slam_cpu(cfg, run):
          f"{len(kfs)} keyframes against the run's database ({int(db.valid.sum())} "
          f"stored frames): card {'equal to' if not failures else 'against'} the CPU")
     _require(not failures, "slam-cpu: " + "; ".join(failures))
+
+
+def _state_differences(a, b):
+    """The names of what differs between two engines' checkpoint states
+    (arrays bitwise, dtypes included; meta fields), and their trajectories."""
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    (xa, ma), (xb, mb) = checkpoint.engine_state(a), checkpoint.engine_state(b)
+    diff = [k for k in sorted(set(xa) | set(xb)) if k not in xa or k not in xb
+            or xa[k].dtype != xb[k].dtype or not np.array_equal(xa[k], xb[k])]
+    diff += [f"meta {k}" for k in sorted(set(ma) | set(mb)) if ma.get(k) != mb.get(k)]
+    diff += [fn for fn in ("trajectory", "odometry_trajectory")
+             if not np.array_equal(getattr(a, fn)(), getattr(b, fn)())]
+    return diff
+
+
+def phase_resume(cfg, run):
+    """[slam]'s checkpoint after frame SLAM_SAVE_AT restored into a fresh
+    engine on the card, which runs the remaining frames (every loop closure
+    of the run) with the same noise: bitwise equal to the unbroken engine in
+    everything the checkpoint holds (tracker state and generators, poses,
+    tracks, the LCD database, the pool, keyframes, loop edges, stats, loop
+    events) and in both trajectories."""
+    import shutil
+
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.slam import SlamSystem
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    cuda = torch.device("cuda")
+    path, frames, noises = run["ckpt"], run["frames"], run["noises"]
+    size = sum(os.path.getsize(os.path.join(path, f)) for f in os.listdir(path))
+    slam = SlamSystem(sp.load_params(device=cuda), cfg, ba_every=SLAM_BA_EVERY,
+                      enable_loop_closure=True, fetch_delay=0, device=cuda)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    checkpoint.restore(slam, path)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(path)
+    restored_verifications = slam.verifications
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for j in range(SLAM_SAVE_AT + 1, len(frames)):
+        slam.process(frames[j], *noises[j - 1])
+    slam.finish()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+    n, v = len(frames) - SLAM_SAVE_AT - 1, slam.verifications - restored_verifications
+    expected = {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
+                "svd3": 3 * (n + v), "fused_stem": n}
+    _log(f"[resume] kernels over the {n} resumed frames and {v} verifications: {json.dumps(launches)}")
+    _require(launches == expected, f"resume launches {launches}, expected {expected}")
+    diff = _state_differences(run["slam"], slam)
+    ev = [(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events if e.frame > SLAM_SAVE_AT]
+    _log(f"[resume] checkpoint after frame {SLAM_SAVE_AT}: save {1e3 * run['save_s']:.3f} ms, "
+         f"{size} bytes on disk; restore into a fresh engine {1e3 * restore_s:.3f} ms; frames "
+         f"{SLAM_SAVE_AT + 1}-{len(frames) - 1} in {run_s:.3f} s, loop closures there {ev}, "
+         f"{slam.verifications} verifications in all")
+    _log(f"[resume] against the unbroken [slam] engine: "
+         f"{'bitwise equal' if not diff else 'DIFFERS in ' + ', '.join(diff)}")
+    _require(len(ev) == len([e for e in run["slam"].loop_events if e.frame > SLAM_SAVE_AT]) > 0,
+             f"resume: loop closures after the checkpoint {ev}")
+    _require(not diff, f"resume: the resumed engine differs from the unbroken one in {diff}")
+
+
+def phase_elastic(cfg, frames):
+    """`ElasticRunner` on the card over the first ELASTIC_FRAMES orbit
+    frames (its RANSAC noise from the generators, no BA, no loop closure,
+    a checkpoint every ELASTIC_EVERY frames): unbroken, with a crash
+    injected before frame ELASTIC_CRASH_AT, and with frame ELASTIC_HANG_AT's
+    step hung past a deadline set from the unbroken run's steps. Each fault
+    costs exactly one restart, and each trajectory equals the unbroken one
+    bitwise. Prints the steps' wall and each recovery's (restore + replay)."""
+    import threading
+
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.utils import elastic
+
+    cuda = torch.device("cuda")
+    params = sp.load_params(device=cuda)
+    seq = frames[:ELASTIC_FRAMES]
+    kw = dict(checkpoint_every=ELASTIC_EVERY, ba_every=0, enable_loop_closure=False, device=cuda)
+
+    def timed_run(runner):
+        """runner.run(seq) with the launch counts set to 0 just before; its
+        trajectory, every attempted step as (frame, wall s), each recovery
+        (fresh engine + restore) as ("recover", wall s), and the counts."""
+        log, run_step, recover = [], runner.detector.run_step, runner._recover
+
+        def step(system, image, frame=None):
+            t0 = time.perf_counter()
+            try:
+                run_step(system, image, frame)
+            finally:
+                log.append((frame, time.perf_counter() - t0))
+
+        def rec():
+            t0 = time.perf_counter()
+            recover()
+            log.append(("recover", time.perf_counter() - t0))
+
+        runner.detector.run_step, runner._recover = step, rec
+        kernels.reset_launch_counts()
+        system = runner.run(seq)
+        runner.close()
+        return system.trajectory(), log, kernels.launch_counts()
+
+    def expected(frames):
+        """Launches of `frames` processed frames, the first one's extraction only."""
+        return {"detector_postproc": frames, "windowed_match": frames - 1,
+                "nullspace_inverse_iteration": 4 * (frames - 1), "svd3": 3 * (frames - 1),
+                "fused_stem": frames}
+
+    def recovery_s(log, failed):
+        """Restore + replay: the recovery and the steps after it up to the
+        failed frame."""
+        k = next(i for i, (f, _) in enumerate(log) if f == "recover")
+        return log[k][1] + sum(s for f, s in log[k + 1:] if f != "recover" and f < failed)
+
+    runner = elastic.ElasticRunner(params, cfg, **kw)
+    want, log, unbroken_launches = timed_run(runner)
+    steps = [s for _, s in log]
+    deadline = max(2.0, 20 * max(steps))
+    _require(runner.restarts == 0, f"elastic: the unbroken run restarted {runner.failures}")
+
+    fired = []
+
+    def crash(i, img):
+        if i == ELASTIC_CRASH_AT and not fired:
+            fired.append(i)
+            raise RuntimeError("injected device fault")
+
+    runner = elastic.ElasticRunner(params, cfg, fault_hook=crash, **kw)
+    crashed, crash_log, crash_launches = timed_run(runner)
+    crash_runs = (runner.restarts, runner.failures)
+
+    runner = elastic.ElasticRunner(params, cfg, step_timeout_s=deadline, **kw)
+    process, hung = runner.system.process, []
+
+    def sluggish(image):
+        if runner.system.frame_idx + 1 == ELASTIC_HANG_AT and not hung:
+            hung.append(ELASTIC_HANG_AT)
+            time.sleep(2 * deadline)
+        return process(image)
+
+    runner.system.process = sluggish
+    threads = set(threading.enumerate())
+    hanged, hang_log, hang_launches = timed_run(runner)
+    hang_runs = (runner.restarts, runner.failures)
+    for t in set(threading.enumerate()) - threads:  # the abandoned step finishes its frame
+        t.join(timeout=4 * deadline)
+
+    _log(f"[elastic] {ELASTIC_FRAMES} frames at {H}x{W}, checkpoint every {ELASTIC_EVERY}: unbroken "
+         f"steps median {1e3 * np.median(steps):.3f} ms, max {1e3 * max(steps):.3f} ms; hang deadline "
+         f"{deadline:.3f} s against a {2 * deadline:.3f} s sleep")
+    for name, (restarts, failures), log, at in (("crash", crash_runs, crash_log, ELASTIC_CRASH_AT),
+                                                ("hang", hang_runs, hang_log, ELASTIC_HANG_AT)):
+        rec = recovery_s(log, at) if restarts else float("nan")
+        _log(f"[elastic] {name} at frame {at}: restarts {restarts}, failures {failures}; recovery "
+             f"(fresh engine + restore + replay to frame {at}) {1e3 * rec:.3f} ms")
+    # The crash run processes frames 0..CRASH_AT - 1, then, restored at the
+    # last checkpoint, the frames after it again and on to the end.
+    replayed = ELASTIC_CRASH_AT - (ELASTIC_CRASH_AT // ELASTIC_EVERY) * ELASTIC_EVERY
+    _log(f"[elastic] kernels: unbroken {json.dumps(unbroken_launches)}, crash "
+         f"{json.dumps(crash_launches)} ({replayed} frames replayed), hang {json.dumps(hang_launches)}")
+    checks = [
+        (unbroken_launches == expected(ELASTIC_FRAMES), f"unbroken launches {unbroken_launches}"),
+        (crash_launches == expected(ELASTIC_FRAMES + replayed), f"crash launches {crash_launches}"),
+        (all(hang_launches.values()), f"hang launches {hang_launches}"),
+        (crash_runs[0] == 1 and f"frame {ELASTIC_CRASH_AT}" in crash_runs[1][0], f"crash {crash_runs}"),
+        (hang_runs[0] == 1 and f"frame {ELASTIC_HANG_AT}" in hang_runs[1][0], f"hang {hang_runs}"),
+        (np.array_equal(crashed, want), "the crash run's trajectory differs from the unbroken run's"),
+        (np.array_equal(hanged, want), "the hang run's trajectory differs from the unbroken run's"),
+    ]
+    _log(f"[elastic] trajectories bitwise equal to the unbroken run: crash "
+         f"{np.array_equal(crashed, want)}, hang {np.array_equal(hanged, want)}")
+    _require(all(ok for ok, _ in checks), "elastic: " + "; ".join(w for ok, w in checks if not ok))
+
+
+def pool_stress_frames(rng, num_frames=100, per_frame=200, overlap=75, max_id=5000):
+    """tests/test_feature_pool.py's stress sequence: frames of `per_frame`
+    ids, `overlap` of them carried over from the previous frame."""
+    frames = [rng.choice(max_id, per_frame, replace=False)]
+    for _ in range(num_frames - 1):
+        keep = rng.choice(frames[-1], overlap, replace=False)
+        fresh = rng.choice(np.setdiff1d(np.arange(max_id), keep), per_frame - overlap, replace=False)
+        frames.append(np.concatenate([keep, fresh]))
+    return frames
+
+
+def phase_host_pool():
+    """The native host pool built with g++ here (the first use builds it),
+    over tests/test_feature_pool.py's stress sequence (seed 41, 100 frames,
+    capacity 3000, window 8): the invariant on every frame, the last 8
+    frames' ids left; `observe_batch` timed on the host clock. Then the
+    ASan/UBSan stress driver, where the toolchain has sanitizers."""
+    from maveric_slam_tpu_torch.runtime import pool
+
+    t0 = time.perf_counter()
+    p = pool.FeaturePool(capacity=3000, max_frames=8)
+    build_s = time.perf_counter() - t0
+    frames = pool_stress_frames(np.random.default_rng(41))
+    walls, bad = [], []
+    for f, ids in enumerate(frames):
+        t0 = time.perf_counter()
+        p.observe_batch(ids, f)
+        walls.append(time.perf_counter() - t0)
+        p.remove_old(f)
+        code = p.check_invariant(f)
+        if code:
+            bad.append((f, code))
+    want = set().union(*(set(ids.tolist()) for ids in frames[-8:]))
+    us = np.array(walls) * 1e6
+    _log(f"[host-pool] built and loaded in {build_s:.2f} s; {len(frames)} frames of {len(frames[0])} "
+         f"ids: invariant violations {bad}, {len(p)} features left (load factor {p.load_factor:.4f}); "
+         f"observe_batch host time median {np.median(us):.2f} us, p90 {np.percentile(us, 90):.2f} us, "
+         f"max {us.max():.2f} us")
+    _require(not bad and set(p.valid_keys().tolist()) == want, f"host pool: invariant {bad}")
+    try:
+        binary = pool.stress_binary()
+    except pool.SanitizersUnavailable as e:
+        _log(f"[host-pool] sanitizer stress driver not built, the toolchain lacks the sanitizers: "
+             f"{' | '.join(str(e).splitlines()[1:])}")
+        return
+    res = subprocess.run([str(binary)], capture_output=True, text=True, timeout=300)
+    _log(f"[host-pool] ASan/UBSan stress driver: exit {res.returncode}, {res.stdout.strip()}")
+    _require(res.returncode == 0 and "pool_stress: OK" in res.stdout,
+             f"host pool stress driver: {res.stdout[-500:]}{res.stderr[-2000:]}")
 
 
 def phase_profile_slam(cfg, run, warm=8, frames=8):
@@ -1794,6 +2058,9 @@ def main():
                      "pose_graph.optimize": _phased("pose-graph", phase_pose_graph)}
     slam_run = _phased("slam", phase_slam, cfg, renders)
     _phased("slam-cpu", phase_slam_cpu, cfg, slam_run)
+    _phased("resume", phase_resume, cfg, slam_run)
+    _phased("elastic", phase_elastic, cfg, frames)
+    _phased("host-pool", phase_host_pool)
     single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
     batched_ms = float(np.median(b_times[1:]) * 1e3)
     _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")

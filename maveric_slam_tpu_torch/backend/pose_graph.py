@@ -6,10 +6,12 @@ Levenberg-Marquardt with a gauge prior on pose 0. The loop runs on the
 graph's device with no host synchronisation: acceptance and the damping
 schedule are tensor selects, and the solve reports no error to the host.
 
-The normal system is summed with `index_put_(accumulate=True)`; on a CUDA
-device that is atomic, so the last bits of H can change from run to run
-(the card is held to the CPU within a tolerance, chip_smoke.py
-`[pose-graph]`).
+The normal system is summed with `index_put_(accumulate=True)`. On a CUDA
+device PyTorch sorts the indices and adds each target's terms in one
+thread, a fixed order: two solves of one graph on a card are bitwise equal
+(chip_smoke.py `[pose-graph]` checks it), which a resumed engine needs to
+replay a loop closure exactly (`[resume]`). The card is held to the CPU
+within a tolerance (`[pose-graph]`): their products round differently.
 """
 
 from __future__ import annotations

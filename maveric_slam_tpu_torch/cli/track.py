@@ -4,13 +4,17 @@ maveric_slam_tpu/cli/track.py):
   python -m maveric_slam_tpu_torch.cli.track IMAGE_DIR [--out-dir out/]
       [--img-glob '*.png'] [--skip N] [--max-frames N] [--no-ba]
       [--no-loop-closure] [--gt poses.txt] [--gt-offset N] [--plot]
+      [--checkpoint ckpt/ [--checkpoint-every N]] [--resume ckpt/]
       [--seed N] [--device cpu]
 
 Writes KITTI-format poses (poses.txt), a PLY polyline (trajectory.ply),
 with --gt the ATE/RPE metrics (metrics.json), and with --plot a top-down
-plot (trajectory.png). It runs on the CUDA device unless `--device cpu` is
-given; `--seed` seeds the RANSAC noise. Decoding the images needs cv2 or
-PIL; the plot needs matplotlib.
+plot (trajectory.png). --checkpoint saves the engine's state there at the
+end (utils/checkpoint.py), and every N frames with --checkpoint-every N;
+--resume restores a checkpoint first and goes on from the frame after it.
+It runs on the CUDA device unless `--device cpu` is given; `--seed` seeds
+the RANSAC noise. Decoding the images needs cv2 or PIL; the plot needs
+matplotlib.
 """
 
 import argparse
@@ -29,6 +33,12 @@ def main(argv=None) -> None:
     parser.add_argument("--no-loop-closure", action="store_true")
     parser.add_argument("--gt", default=None, help="KITTI GT pose file")
     parser.add_argument("--gt-offset", type=int, default=0)
+    parser.add_argument("--checkpoint", default=None, help="save state here")
+    parser.add_argument(
+        "--checkpoint-every", type=int, default=0,
+        help="also checkpoint every N frames during the run (crash-safe: a kill mid-save "
+        "leaves the previous checkpoint intact)")
+    parser.add_argument("--resume", default=None, help="restore state first")
     parser.add_argument("--plot", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
@@ -39,7 +49,7 @@ def main(argv=None) -> None:
     from ..models import superpoint as sp
     from ..ops.backend import resolve_device
     from ..slam import SlamSystem
-    from ..utils import evaluation, trajectory
+    from ..utils import checkpoint, evaluation, trajectory
 
     cfg = DEFAULT_CONFIG
     dev = resolve_device(args.device)
@@ -49,10 +59,17 @@ def main(argv=None) -> None:
     slam = SlamSystem(sp.load_params(device=dev), cfg, seed=args.seed,
                       ba_every=0 if args.no_ba else 4,
                       enable_loop_closure=not args.no_loop_closure, device=dev)
+    start = 0
+    if args.resume:
+        checkpoint.restore(slam, args.resume)
+        start = slam.frame_idx + 1
+        print(f"resumed at frame {start}")
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     with slam:
-        for i in range(n):
+        for i in range(start, n):
             slam.process(seq[i])
+            if args.checkpoint and args.checkpoint_every and (i + 1) % args.checkpoint_every == 0:
+                checkpoint.save(slam, args.checkpoint)
             if slam.stats and i % 10 == 0:
                 s = slam.stats[-1]
                 print(f"frame {i}/{n}: matches={s['matches']} inliers={s['inliers']}"
@@ -63,6 +80,9 @@ def main(argv=None) -> None:
     print(f"wrote {args.out_dir}/poses.txt ({len(poses)} poses)")
     if slam.loop_events:
         print(f"loop closures: {[(e.frame, e.matched_frame) for e in slam.loop_events]}")
+    if args.checkpoint:
+        checkpoint.save(slam, args.checkpoint)
+        print(f"checkpointed to {args.checkpoint}")
 
     gt = None
     if args.gt:

@@ -43,6 +43,7 @@ from .loopclosure import lcd, vocab as vocab_lib
 from .mapping import feature_pool
 from .ops import matching
 from .ops.backend import resolve_device
+from .ops.kernels import _build
 from .tracks import TrackTable
 from .utils.trajectory import compose_trajectory
 
@@ -234,6 +235,11 @@ class SlamSystem:
         self.verify_noise = verify_noise
         self._verify_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.verifications = 0  # loop candidates verified so far
+        if self.device.type == "cuda":
+            # Build or load the kernels here rather than inside the first
+            # step, so that a deadline on a step (utils/elastic.py) never
+            # times an nvcc build, and a failed build raises from here.
+            _build.library()
 
         self.state: Optional[trk.TrackerState] = None
         self.frame_idx = -1

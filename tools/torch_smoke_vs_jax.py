@@ -4,7 +4,7 @@ from.
 
     JAX_PLATFORMS=cpu python tools/torch_smoke_vs_jax.py [stream0] [pairwise] [ba] [pose-graph]
         [slam [--size 96x320|192x640] [--frames N] [--fetch-delay D] [--eager] [--port]
-         [--port-ba]]
+         [--port-ba] [--jax-order]] [tracker [--seeds N]] [steps [--frames N] [--jax-features] [--eager]] [checkpoint [--fetch-delay D]]
 
 - stream0: chip_smoke.py's batched stream 0 (orbit frames 0-5 at 192x640,
   RANSAC noise from torch.Generator().manual_seed(1) for all 16 streams)
@@ -29,6 +29,29 @@ from.
   spread; ~15 s a frame at 96x320): with --frames 13 the source of
   tests/test_torch_slam.py's odometry bar. --port-ba also runs the JAX engine
   with its window BA solved by the port's (`_window_ba_packed` on the CPU).
+  --jax-order also runs the port with each frame's top-N list put in the
+  JAX engine's order (the same cells, which the port's detector orders by
+  probs an ulp apart from XLA's: ROADMAP Faults (l)), with JAX's noise.
+- tracker: the free-running `Tracker` of each package over the 125-frame
+  96x320 orbit, each drawing its own noise (JAX: PRNGKey(seed); the port: a
+  torch.Generator seeded seed) for seeds 0 .. --seeds N - 1 (1 unless
+  given); the ATE of each odometry chain, and their spread over the seeds.
+- steps: the port's `track_step` run from the JAX Tracker's own state at
+  every step of the JAX Tracker's chain (jit, PRNGKey(0), the 96x320 orbit,
+  --frames N of it), with the frame and that step's noise: per step the
+  gaps in R, t and the scale, and over the chain the mean and spread of the
+  port's scale and translation norm against JAX's. A fault of the port
+  shows as a bias; rounding as a scatter around 0. --jax-features feeds
+  the port's step JAX's features of the new frame too (descriptors, probs,
+  winners and xy from JAX's next state, the top-N selected from them by
+  the port), so that only the step's tail differs. --eager also runs JAX's
+  step with jit disabled from the same state and prints the same gaps
+  between JAX's two runs (~15 s a step): the reference's own spread.
+- checkpoint: the JAX engine at --fetch-delay D (3 unless given) over frames
+  0-12 of the 96x320 orbit, saved with its own `checkpoint.save` after frame
+  6 and resumed into a fresh engine over frames 7-12, against its unbroken
+  run: what the save keeps of the frames still in flight; then the port's
+  `save` at the same point.
 
 JAX's RANSAC draws its noise from a PRNG key; here a stand-in for
 `jax.random` inside its RANSAC module hands it the port's noise instead, so
@@ -282,7 +305,42 @@ def _jax_with_port_ba(jp, frames, fetch_delay, tcfg):
         jslam._window_ba_packed = solve
 
 
-def slam(jp, tp, size, frames_n, fetch_delay, eager, port, port_ba):
+def _run_port_in_jax_order(tp, frames, fetch_delay, views):
+    """ts.run_port with each step's top-N list permuted into the order of
+    the JAX engine's list for the same frame (`views[k].cells_new`, step k);
+    the selected cells must be the same set."""
+    import test_torch_slam as ts
+    from maveric_slam_tpu_torch.frontend import extractor as text
+    from maveric_slam_tpu_torch.ops import softmax_topn as tst
+
+    orders = iter([None] + [np.asarray(v.cells_new) for v in views])  # frame 0: no top-N used
+    extract = text.extract_quantized_batched
+    moved = []
+
+    def in_jax_order(params, images, config, apply_nms=False):
+        f = extract(params, images, config, apply_nms)
+        want = next(orders)
+        if want is None:
+            return f
+        cells, n_sel = f.top.cells[0].numpy(), int(f.top.mask[0].sum())
+        if sorted(cells[:n_sel].tolist()) != sorted(want[:n_sel].tolist()):
+            raise RuntimeError("the port and JAX selected different cells")
+        pos = {c: k for k, c in enumerate(cells[:n_sel].tolist())}
+        perm = torch.tensor([pos[c] for c in want[:n_sel].tolist()] + list(range(n_sel, len(cells))))
+        moved.append(int((perm != torch.arange(len(cells))).sum()))
+        return f._replace(top=tst.TopN(*(x[:, perm] for x in f.top[:4]), f.top.num_selected))
+
+    text.extract_quantized_batched = in_jax_order
+    try:
+        slam = ts.run_port(tp, frames, fetch_delay)
+    finally:
+        text.extract_quantized_batched = extract
+    print(f"[slam] top-N entries moved into JAX's order: {sum(moved)} on "
+          f"{sum(m > 0 for m in moved)} of {len(moved)} frames", flush=True)
+    return slam
+
+
+def slam(jp, tp, size, frames_n, fetch_delay, eager, port, port_ba, jax_order):
     import test_torch_slam as ts
 
     jcfg, tcfg, frames, gt = _slam_scene(size)
@@ -301,6 +359,9 @@ def slam(jp, tp, size, frames_n, fetch_delay, eager, port, port_ba):
     if size == "96x320" or port:
         t = ts.run_port(tp, frames, fetch_delay)
         _engine_summary("port (CPU, JAX's noise)", t, gt)
+    if jax_order:
+        _engine_summary("port (CPU, JAX's noise, JAX's top-N order)",
+                        _run_port_in_jax_order(tp, frames, fetch_delay, j.views), gt)
     if e is not None:
         for k in range(len(j.rel_poses)):
             gaps = [(n, a.rel_poses[k], b.rel_poses[k]) for n, a, b in
@@ -324,6 +385,169 @@ def slam(jp, tp, size, frames_n, fetch_delay, eager, port, port_ba):
                       f"{int(a.num_inliers)} port {int(b.num_inliers)}")
 
 
+def tracker(jp, tp, seeds):
+    """The free-running trackers, each with its own noise, on the 125-frame
+    orbit: ATE of each odometry chain, seed by seed."""
+    import test_torch_slam as ts
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    frames, gt = ts.orbit(ts.N_ORBIT)
+    ates = {"JAX": [], "port": []}
+    for seed in range(seeds):
+        j = jtracker.Tracker(jp, ts.JCFG, seed=seed)
+        t = ttracker.Tracker(tp, ts.TCFG, seed=seed, device="cpu")
+        for f in frames:
+            j.process(f)
+            t.process(f)
+        for name, trk in (("JAX", j), ("port", t)):
+            a = evaluation.ate(trk.trajectory(), gt)["ate_rmse"]
+            ates[name].append(a)
+            print(f"[tracker] {name} Tracker, seed {seed}: ATE {a:.4f} m over {len(frames)} frames, "
+                  f"valid {sum(s['valid'] for s in trk.stats)}/{len(trk.stats)}, inliers median "
+                  f"{np.median([s['inliers'] for s in trk.stats])}", flush=True)
+    for name, a in ates.items():
+        print(f"[tracker] {name} over {seeds} seeds: ATE median {np.median(a):.4f} m, mean "
+              f"{np.mean(a):.4f}, min {min(a):.4f}, max {max(a):.4f}", flush=True)
+
+
+def _port_tail_step(tp, tstate, f, noise, jnext):
+    """The port's step on frame f with the new frame's features taken from
+    JAX's next state `jnext` (numpy fields) and the top-N selected from
+    them by the port's `top_n_select`."""
+    import test_torch_slam as ts
+    from maveric_slam_tpu_torch.frontend import extractor as text
+    from maveric_slam_tpu_torch.ops import softmax_topn as tst
+
+    fc = ts.TCFG.frontend
+    feats = text.extract_quantized_batched(tp, torch.from_numpy(f)[None], ts.TCFG)
+    grid = {n: torch.from_numpy(jnext[n]).reshape(1, fc.grid_h, fc.grid_w, *jnext[n].shape[1:])
+            for n in ("desc", "probs", "indices", "xy")}
+    top = tst.top_n_select(tst.SoftmaxGrid(probs=grid["probs"], indices=grid["indices"]),
+                           n=fc.top_n, valid_thresh=fc.valid_prob_thresh, mode=fc.top_n_mode)
+    feats = feats._replace(desc_q=grid["desc"], probs=grid["probs"], indices=grid["indices"],
+                           xy=grid["xy"], top=top)
+    _, res = ttracker._step_from_feats(ttracker._batched(tstate), feats, ts.TCFG,
+                                       *(torch.from_numpy(g)[None] for g in noise))
+    return ttracker.StepResult(*(x[0] for x in res))
+
+
+def _step_gap_row(label, k, jout, tout):
+    """(max |dR|, max |dt|, scale ratio - 1, |t| ratio - 1, counts) of one
+    step against JAX's jitted step, printed."""
+    jR, jt, tR, tt = (np.asarray(x) for x in (jout.R, jout.t, tout.R, tout.t))
+    counts = [(int(getattr(jout, n)), int(getattr(tout, n)))
+              for n in ("num_matches", "num_inliers", "num_scale_pairs")]
+    row = (float(np.abs(tR - jR).max()), float(np.abs(tt - jt).max()),
+           float(tout.scale) / float(jout.scale) - 1.0,
+           float(np.linalg.norm(tt)) / float(np.linalg.norm(jt)) - 1.0, counts)
+    print(f"[steps] {label} step {k}: max |dR| {row[0]:.3g} |dt| {row[1]:.3g}, scale ratio - 1 "
+          f"{row[2]:+.3g}, |t| ratio - 1 {row[3]:+.3g}, (matches, inliers, scale pairs) JAX jit/"
+          f"{label} {counts}", flush=True)
+    return row
+
+
+def _step_gap_summary(label, rows):
+    r = np.array([x[:4] for x in rows])
+    same = sum(all(a == b for a, b in x[4]) for x in rows)
+    print(f"[steps] {label} against JAX jit, {len(rows)} steps: counts equal on {same}; max |dR| "
+          f"{r[:, 0].max():.3g}, median {np.median(r[:, 0]):.3g}; max |dt| {r[:, 1].max():.3g}, "
+          f"median {np.median(r[:, 1]):.3g}; scale ratio - 1 mean {r[:, 2].mean():+.3g} (std "
+          f"{r[:, 2].std():.3g}, median {np.median(r[:, 2]):+.3g}); |t| ratio - 1 mean "
+          f"{r[:, 3].mean():+.3g} (std {r[:, 3].std():.3g}, median {np.median(r[:, 3]):+.3g})",
+          flush=True)
+
+
+def steps(jp, tp, frames_n, jax_features, eager):
+    """One port step (and with `eager` one JAX step with jit disabled) from
+    each state of the JAX Tracker's jitted chain."""
+    import test_torch_slam as ts
+
+    frames, _ = ts.orbit(frames_n or ts.N_ORBIT)
+    state = jtracker.init_state(jp, jnp.asarray(frames[0]), ts.JCFG, 0)
+    rows, eager_rows = [], []
+    for k, f in enumerate(frames[1:]):
+        snap = {n: np.array(v) for n, v in state._asdict().items()}
+        noise = ts.ransac_noise(jax.random.split(state.key)[0])
+        state, jout = jtracker.track_step(jp, state, jnp.asarray(f), ts.JCFG)
+        if eager:
+            with jax.disable_jit():
+                _, eout = jtracker.track_step(
+                    jp, jtracker.TrackerState(**{n: jnp.asarray(v) for n, v in snap.items()}),
+                    jnp.asarray(f), ts.JCFG)
+            eager_rows.append(_step_gap_row("JAX eager", k, jout, eout))
+        tstate = ttracker.TrackerState(
+            **{n: torch.from_numpy(v) for n, v in snap.items() if n != "key"},
+            generator=torch.Generator())
+        if jax_features:
+            tout = _port_tail_step(tp, tstate, f, noise, {n: np.array(v) for n, v in
+                                                          state._asdict().items()})
+        else:
+            _, tout = ttracker.track_step(tp, tstate, torch.from_numpy(f), ts.TCFG,
+                                          *(torch.from_numpy(g) for g in noise))
+        rows.append(_step_gap_row("port", k, jout, tout))
+    _step_gap_summary("port" + (" (JAX's features)" if jax_features else ""), rows)
+    if eager:
+        _step_gap_summary("JAX eager", eager_rows)
+
+
+def checkpoint(jp, tp, fetch_delay, save_at=6, frames_n=13):
+    """The JAX engine saved mid-run at `fetch_delay` and resumed, against its
+    unbroken run; then the port's save at the same point."""
+    import tempfile
+
+    import test_torch_slam as ts
+    from maveric_slam_tpu import slam as jslam
+    from maveric_slam_tpu.loopclosure import vocab as jvocab
+    from maveric_slam_tpu.utils import checkpoint as jcheckpoint
+    from maveric_slam_tpu_torch import slam as tslam
+    from maveric_slam_tpu_torch.utils import checkpoint as tcheckpoint
+    from test_torch_loopclosure import jax_vocabulary
+
+    frames, _ = ts.orbit(frames_n)
+    path = tempfile.mkdtemp()
+    jvocab.load_reference_vocabulary = jax_vocabulary
+
+    def engine():
+        return jslam.SlamSystem(jp, ts.JCFG, ba_every=4, enable_loop_closure=True,
+                                fetch_delay=fetch_delay)
+
+    a = engine()
+    for k, f in enumerate(frames):
+        a.process(f)
+        if k == save_at:
+            pending = len(a._pending)
+            jcheckpoint.save(a, path)
+    b = engine()
+    jcheckpoint.restore(b, path)
+    print(f"[checkpoint] JAX engine, fetch_delay {fetch_delay}: saved after frame {save_at} with "
+          f"{pending} frames in flight; the checkpoint holds {len(b.poses)} poses, "
+          f"{len(b.stats)} step stats, frame_idx {b.frame_idx}", flush=True)
+    ta = a.trajectory()
+    print(f"[checkpoint] unbroken: {len(ta)} poses, {len(a.stats)} stats, keyframes {a.kf_frames}",
+          flush=True)
+    try:
+        for k in range(save_at + 1, len(frames)):
+            b.process(frames[k])
+        tb = b.trajectory()
+    except Exception as e:  # noqa: BLE001 (the finding: reported, not raised)
+        print(f"[checkpoint] the resumed engine fails at frame {k}: {e!r}", flush=True)
+    else:
+        n = min(len(ta), len(tb))
+        gap = np.abs(ta[:n, :3, 3] - tb[:n, :3, 3]).max(axis=-1)
+        print(f"[checkpoint] resumed: {len(tb)} poses, {len(b.stats)} stats, keyframes {b.kf_frames}; "
+              f"position gap to the unbroken run over the first {n} poses (m): "
+              + " ".join(f"{g:.4g}" for g in gap), flush=True)
+    t = tslam.SlamSystem(tp, ts.TCFG, ba_every=4, enable_loop_closure=True,
+                         fetch_delay=fetch_delay, device="cpu")
+    for f in frames[:save_at + 1]:
+        t.process(f)
+    try:
+        tcheckpoint.save(t, tempfile.mkdtemp())
+        print("[checkpoint] port: saved", flush=True)
+    except ValueError as e:
+        print(f"[checkpoint] port: save refused ({e})", flush=True)
+
+
 def main():
     import argparse
 
@@ -335,13 +559,21 @@ def main():
     ap.add_argument("--eager", action="store_true")
     ap.add_argument("--port", action="store_true")
     ap.add_argument("--port-ba", action="store_true")
+    ap.add_argument("--jax-order", action="store_true")
+    ap.add_argument("--jax-features", action="store_true")
+    ap.add_argument("--seeds", type=int, default=1)
     args = ap.parse_args()
-    jp, tp = _params() if {"stream0", "pairwise", "slam"} & set(args.what) else (None, None)
+    jp, tp = (_params() if {"stream0", "pairwise", "slam", "tracker", "steps", "checkpoint"}
+              & set(args.what)
+              else (None, None))
     for w in args.what:
         {"stream0": lambda: stream0(jp, tp), "pairwise": lambda: pairwise(jp, tp), "ba": ba,
          "pose-graph": pose_graph,
          "slam": lambda: slam(jp, tp, args.size, args.frames, args.fetch_delay, args.eager,
-                              args.port, args.port_ba)}[w]()
+                              args.port, args.port_ba, args.jax_order),
+         "tracker": lambda: tracker(jp, tp, args.seeds),
+         "steps": lambda: steps(jp, tp, args.frames, args.jax_features, args.eager),
+         "checkpoint": lambda: checkpoint(jp, tp, args.fetch_delay or 3)}[w]()
 
 
 if __name__ == "__main__":
