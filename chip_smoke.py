@@ -67,6 +67,21 @@ Phases, in order; any failure raises and exits non-zero:
      pool built with g++ on this machine, the 100-frame stress sequence
      with its invariant held on every frame, `observe_batch` host time, and
      the ASan/UBSan stress driver where the toolchain has sanitizers;
+  5e. [mesh] 4 ranks started by `parallel.mesh.spawn`, gloo, all on the one
+     card: landmark-sharded BA at [ba]'s problem against `bundle_adjust` on
+     the card (R 1e-4, t 1e-3, cost rtol 1e-3), the 4096 x 10000 LCD ring
+     filled through `sharded_add_frame` and `sharded_query` (rows, slot,
+     frame and score equal, a tie across ranks included), the 10000-word
+     sharded pool (exact) and the stream-sharded step at S = 16 against
+     `track_step_batched` (rotation < 0.05 deg, cos t > 0.99999, inliers
+     within 3); walls of a sharded BA call, of its collectives and of a
+     sharded query; [mesh-slam] the mesh-mode SlamSystem on the same 4 ranks
+     over [slam]'s scene with its own launch counts per rank: ranks bitwise
+     equal, [slam]'s BA-window count and loop pairs, [slam]'s bars, the
+     trajectory against [slam]'s within MESH_SLAM_ALIGNED_BAR and
+     MESH_SLAM_ATE_BAR; rank 0's frame
+     latency and rate; [mesh-nccl] the same components and engine on one
+     rank over NCCL, bitwise equal to the single-device port;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -90,6 +105,7 @@ imports nothing of JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -168,6 +184,25 @@ SLAM_CPU_FRAMES = 12  # [slam-cpu]: the run's first frames through the port on t
 SLAM_SAVE_AT = 180  # [resume]: the [slam] run's checkpoint, before its first loop closure (194)
 ELASTIC_FRAMES, ELASTIC_EVERY = 12, 4  # [elastic]: orbit frames, checkpoint interval
 ELASTIC_CRASH_AT, ELASTIC_HANG_AT = 7, 6  # the frames of the injected crash and hang
+# [mesh] / [mesh-slam]: gloo ranks sharing the one card (NCCL refuses two
+# ranks on one GPU); [mesh-nccl] is one NCCL rank. Every spawned phase has a
+# wall limit, and `spawn` kills the other ranks when one fails.
+MESH_RANKS, MESH_TIMEOUT_S = 4, 600
+MESH_BA_CALLS, MESH_QUERY_CALLS = 5, 10  # timed sharded BA calls / queries a probe
+MESH_LCD_FRAMES = 4096 + 50  # [mesh]: the 4096-frame ring filled and wrapped
+MESH_POOL_FRAMES = 20
+# [mesh-slam]: the 4-rank engine against the single-device [slam] run. The
+# chain is sensitive to the order of the window BA's sums (ROADMAP Faults
+# (l), (o)): the single engine with the landmarks of every BA problem in 6
+# other orders moves by 1.92-5.57 m in raw positions, 0.294-0.479 m after a
+# similarity alignment, its ATE 5.1077-5.1630 m against the unpermuted
+# 5.1526 m; the 4-rank mesh engine (deterministic run to run) by 14.21 m
+# raw, 1.158 m aligned, ATE 5.0812 m, with the same 62 BA windows and five
+# loop closures (`python tools/torch_mesh_spread.py --scene chip --orders 6`,
+# chip run 3, PR 10). Bars: the aligned RMSE against [slam]'s trajectory
+# within twice the mesh's measured 1.158 m, and its ATE within twice the
+# reordered runs' largest ATE change (0.0449 m) of [slam]'s.
+MESH_SLAM_ALIGNED_BAR, MESH_SLAM_ATE_BAR = 2.32, 0.0898
 
 
 def _log(*a):
@@ -1262,7 +1297,8 @@ def phase_slam(cfg, renders):
     _require(all(ok for ok, _ in checks), "slam: " + "; ".join(w for ok, w in checks if not ok))
     flat = spans["flats"][0] if spans["flats"] else None
     return {"frames": frames, "noises": noises, "slam": slam, "record": record,
-            "launches": launches, "verify_flat": flat, "ckpt": ckpt, "save_s": spans["save"]}
+            "launches": launches, "verify_flat": flat, "ckpt": ckpt, "save_s": spans["save"],
+            "gt": gt, "ba_windows": ba_s}
 
 
 def phase_slam_cpu(cfg, run):
@@ -1556,6 +1592,445 @@ def phase_host_pool():
     _log(f"[host-pool] ASan/UBSan stress driver: exit {res.returncode}, {res.stdout.strip()}")
     _require(res.returncode == 0 and "pool_stress: OK" in res.stdout,
              f"host pool stress driver: {res.stdout[-500:]}{res.stderr[-2000:]}")
+
+
+# ---------------------------------------------------------------------- #
+# The mesh: [mesh], [mesh-slam] (4 gloo ranks sharing the card) and
+# [mesh-nccl] (one NCCL rank). Each rank runs `_mesh_rank`, in a process of
+# its own that `parallel.mesh.spawn` starts.
+# ---------------------------------------------------------------------- #
+
+
+def _sync():
+    torch.cuda.synchronize()
+
+
+@contextlib.contextmanager
+def _timed_collectives(mesh_lib, sink):
+    """Within the block, each call of mesh_lib's collectives puts its wall
+    (synchronised before and after) into `sink`."""
+    saved = mesh_lib.psum, mesh_lib.all_gather
+
+    def wrap(fn):
+        def run(*a):
+            _sync()
+            t0 = time.perf_counter()
+            out = fn(*a)
+            _sync()
+            sink.append(time.perf_counter() - t0)
+            return out
+        return run
+
+    mesh_lib.psum, mesh_lib.all_gather = wrap(saved[0]), wrap(saved[1])
+    try:
+        yield
+    finally:
+        mesh_lib.psum, mesh_lib.all_gather = saved
+
+
+def _mesh_components(mesh, cfg, comp):
+    """[mesh]'s components on this rank: sharded BA at [ba]'s problem (walls
+    of MESH_BA_CALLS calls, then one with its collectives timed), the LCD
+    ring filled through sharded_add_frame, sharded queries (walls), the
+    word-sharded pool, and one stream-sharded tracking step at S = 16."""
+    from maveric_slam_tpu_torch.backend import ba
+    from maveric_slam_tpu_torch.frontend import tracker
+    from maveric_slam_tpu_torch.loopclosure import sharded_lcd
+    from maveric_slam_tpu_torch.mapping import feature_pool, sharded_pool
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+    from maveric_slam_tpu_torch.parallel import sharded_ba, sharded_tracker
+
+    dev, out = mesh.device, {}
+    bc = cfg.ba
+
+    def solve():
+        solved, costs = sharded_ba.sharded_bundle_adjust(
+            sharded_ba.shard_problem(ba.BAProblem(*comp["ba"]), mesh), mesh,
+            iterations=bc.max_iterations, damping=bc.lm_damping, huber_delta=bc.huber_delta)
+        return solved, costs, sharded_ba.gather_landmarks(solved.X, mesh)
+
+    walls = []
+    for _ in range(MESH_BA_CALLS + 1):
+        _sync()
+        t0 = time.perf_counter()
+        solved, costs, X = solve()
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    coll = []
+    with _timed_collectives(mesh_lib, coll):
+        _sync()
+        t0 = time.perf_counter()
+        solve()
+        _sync()
+        timed = time.perf_counter() - t0
+    out["ba"] = {"R": solved.R.cpu().numpy(), "t": solved.t.cpu().numpy(), "X": X.cpu().numpy(),
+                 "cost": costs.cpu().numpy(), "walls": walls[1:], "timed_wall": timed,
+                 "collectives": coll}
+
+    db = sharded_lcd.create_database(cfg.loop.max_db_frames, cfg.loop.vocab_size, mesh)
+    for f, ids in enumerate(comp["lcd_sets"]):
+        db = sharded_lcd.sharded_add_frame(db, torch.from_numpy(ids).to(dev), f, mesh)
+    out["ring"] = {k: getattr(db, k).cpu().numpy() for k in ("multihot", "counts", "frames", "valid")}
+    out["ring"]["next_slot"] = db.next_slot
+    answers, qwalls = [], []
+    current = len(comp["lcd_sets"])
+    for ids in comp["lcd_probes"]:
+        q = torch.from_numpy(ids).to(dev)
+        for _ in range(MESH_QUERY_CALLS):
+            _sync()
+            t0 = time.perf_counter()
+            r = sharded_lcd.sharded_query(db, q, mesh, current, cfg.loop.min_frame_gap,
+                                          cfg.loop.min_score)
+            _sync()
+            qwalls.append(time.perf_counter() - t0)
+        answers.append((int(r.best), int(r.best_frame), float(r.best_score)))
+    out["query"], out["query_walls"] = answers, qwalls
+
+    pool = sharded_pool.create(cfg.loop.vocab_size, cfg.pool.max_frames, mesh)
+    weights = []
+    for f, (ids, q) in enumerate(comp["pool"]):
+        pool = sharded_pool.observe_batch(pool, torch.from_numpy(ids).to(dev), f, mesh)
+        pool = feature_pool.remove_old(pool, f)
+        weights.append(sharded_pool.covisibility_weights(pool, torch.from_numpy(q).to(dev),
+                                                         mesh).cpu().numpy())
+    out["pool"] = {"weights": weights, **{k: mesh_lib.all_gather(getattr(pool, k), mesh)
+                                         .reshape(-1).cpu().numpy()
+                                         for k in ("first_seen", "last_seen", "num_sightings")}}
+
+    images0, images1, gmin, glo = comp["streams"]
+    params = sharded_tracker.replicate_params(sp.load_params(device=dev), mesh)
+    states = tracker.init_states_batched(params, torch.from_numpy(images0).to(dev), cfg)
+    states, images = sharded_tracker.shard_streams(states, torch.from_numpy(images1), mesh)
+    _, step = tracker.track_step_batched(
+        params, states, images, cfg, sharded_tracker.local_streams(torch.from_numpy(gmin), mesh),
+        sharded_tracker.local_streams(torch.from_numpy(glo), mesh))
+    step = sharded_tracker.gather_steps(step, mesh)
+    out["streams"] = {k: getattr(step, k).cpu().numpy() for k in ("R", "t", "valid", "num_inliers")}
+    return out
+
+
+def _mesh_engine(mesh, cfg, renders, idx, noises):
+    """The mesh-mode SlamSystem on this rank over [slam]'s frames and noise
+    (loop closure on, BA every SLAM_BA_EVERY, fetch_delay 0); launch counts
+    set to 0 just before its first frame and read after `finish`. Walls
+    (host clock, synchronised): each frame, each sharded BA call and each
+    sharded LCD query inside it."""
+    from maveric_slam_tpu_torch.loopclosure import sharded_lcd
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.parallel import sharded_ba
+    from maveric_slam_tpu_torch.slam import SlamSystem
+
+    spans = {"ba": [], "query": []}
+
+    def timed(mod, name, sink):
+        fn = getattr(mod, name)
+
+        def run(*a, **k):
+            _sync()
+            t0 = time.perf_counter()
+            res = fn(*a, **k)
+            _sync()
+            sink.append(time.perf_counter() - t0)
+            return res
+        setattr(mod, name, run)
+
+    timed(sharded_ba, "sharded_bundle_adjust", spans["ba"])
+    timed(sharded_lcd, "sharded_query", spans["query"])
+    slam = SlamSystem(sp.load_params(device=mesh.device), cfg, ba_every=SLAM_BA_EVERY,
+                      enable_loop_closure=True, fetch_delay=0, mesh=mesh)
+    _sync()
+    kernels.reset_launch_counts()
+    walls = []
+    for j, k in enumerate(idx):
+        _sync()
+        t0 = time.perf_counter()
+        slam.process(renders[k], *(() if j == 0 else noises[j - 1]))
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    slam.finish()
+    return {"poses": np.stack(slam.poses), "rel": slam.rel_poses, "stats": slam.stats,
+            "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events],
+            "kf_frames": slam.kf_frames, "verifications": slam.verifications,
+            "launches": kernels.launch_counts(), "walls": walls, "ba_walls": spans["ba"],
+            "query_walls": spans["query"], "odometry": slam.odometry_trajectory()}
+
+
+def _mesh_rank(cfg, comp, scene):
+    """One rank of a mesh phase on the card: the components, then the engine."""
+    from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+
+    out = {"t_enter": time.time()}  # the wall clock: comparable across the processes
+    mesh = mesh_lib.make_mesh()
+    out.update(rank=mesh.rank, backend=mesh.backend, device=str(mesh.device))
+    t0 = time.perf_counter()
+    out["components"] = _mesh_components(mesh, cfg, comp)
+    out["components_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["engine"] = _mesh_engine(mesh, cfg, *scene)
+    out["engine_s"] = time.perf_counter() - t0
+    out["t_exit"] = time.time()
+    return out
+
+
+def _spawn_mesh(label, world, cfg, comp, scene):
+    """`_mesh_rank` on `world` ranks; logs where the wall went."""
+    from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+
+    t0 = time.time()
+    runs = mesh_lib.spawn(_mesh_rank, world, args=(cfg, comp, scene), timeout_s=MESH_TIMEOUT_S)
+    t1, r0 = time.time(), runs[0]
+    _log(f"[{label}] {world} rank(s) over {r0['backend']} on {r0['device']}: {t1 - t0:.1f} s from "
+         f"spawn to the last result: rank 0 began {r0['t_enter'] - t0:.1f} s after the spawn "
+         f"(start, imports, joining the group), ran the components {r0['components_s']:.1f} s and "
+         f"the engine {r0['engine_s']:.1f} s, and the last result was back "
+         f"{t1 - max(r['t_exit'] for r in runs):.1f} s after the last rank finished")
+    return runs
+
+
+def mesh_inputs(cfg, streams, noises_b, slam_run, renders):
+    """The mesh phases' inputs, as numpy: [ba]'s problem, MESH_LCD_FRAMES
+    word sets over the 10000-word vocabulary (two of them equal, in
+    different ranks' blocks, for a tie), probes, pool frames, the 16
+    streams' first two frames and the batched phase's first noise; and
+    [slam]'s scene (its unique renders, the orbit index of each frame, the
+    noise)."""
+    rng = np.random.default_rng(12)
+    v = cfg.loop.vocab_size
+    sets = [rng.choice(v, cfg.frontend.top_n, replace=False).astype(np.int32)
+            for _ in range(MESH_LCD_FRAMES)]
+    sets[3000] = sets[1000]  # slots 1000 and 3000: ranks 0 and 2 of 4 tie; slot 1000 must win
+    probes = [sets[1000], sets[2000], sets[MESH_LCD_FRAMES - 1], sets[10]]
+    pool = [(rng.integers(-1, v, (cfg.frontend.top_n,)).astype(np.int32),
+             rng.integers(-1, v, (64,)).astype(np.int32)) for _ in range(MESH_POOL_FRAMES)]
+    gmin, glo = (g.numpy() for g in noises_b[0])
+    comp = {"ba": ba_scene()[0], "lcd_sets": sets, "lcd_probes": probes, "pool": pool,
+            "streams": (np.stack([f[0] for f, _ in streams]), np.stack([f[1] for f, _ in streams]),
+                        gmin, glo)}
+    idx = (np.arange(SLAM_FRAMES) % ORBIT_N).tolist()
+    scene = ({k: renders[k] for k in set(idx)}, idx,
+             [tuple(g.numpy() for g in n) for n in slam_run["noises"]])
+    return comp, scene
+
+
+def _mesh_references(cfg, comp):
+    """The single-device port on the card on [mesh]'s component inputs."""
+    from maveric_slam_tpu_torch.backend import ba
+    from maveric_slam_tpu_torch.frontend import tracker
+    from maveric_slam_tpu_torch.loopclosure import lcd
+    from maveric_slam_tpu_torch.mapping import feature_pool
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    cuda, bc = torch.device("cuda"), cfg.ba
+    prob = ba.BAProblem(*(torch.from_numpy(np.ascontiguousarray(a)).to(cuda) for a in comp["ba"]))
+    solved, stats = ba.bundle_adjust(prob, iterations=bc.max_iterations, damping=bc.lm_damping,
+                                     huber_delta=bc.huber_delta)
+    walls = []
+    for _ in range(MESH_BA_CALLS):
+        _sync()
+        t0 = time.perf_counter()
+        ba.bundle_adjust(prob, iterations=bc.max_iterations, damping=bc.lm_damping,
+                         huber_delta=bc.huber_delta)
+        _sync()
+        walls.append(time.perf_counter() - t0)
+    out = {"ba": {"R": solved.R.cpu().numpy(), "t": solved.t.cpu().numpy(),
+                  "X": solved.X.cpu().numpy(), "cost": stats.cost[:-1].cpu().numpy(),
+                  "walls": walls}}
+    db = lcd.create_database(cfg.loop.max_db_frames, cfg.loop.vocab_size, device=cuda)
+    for f, ids in enumerate(comp["lcd_sets"]):
+        db = lcd.add_frame(db, torch.from_numpy(ids).to(cuda), f)
+    out["ring"] = {k: getattr(db, k).cpu().numpy() for k in ("multihot", "counts", "frames", "valid")}
+    out["ring"]["next_slot"] = db.next_slot
+    answers, qwalls = [], []
+    for ids in comp["lcd_probes"]:
+        q = torch.from_numpy(ids).to(cuda)
+        for _ in range(MESH_QUERY_CALLS):
+            _sync()
+            t0 = time.perf_counter()
+            r = lcd.query(db, q, len(comp["lcd_sets"]), cfg.loop.min_frame_gap, cfg.loop.min_score)
+            _sync()
+            qwalls.append(time.perf_counter() - t0)
+        answers.append((int(r.best), int(r.best_frame), float(r.best_score)))
+    out["query"], out["query_walls"] = answers, qwalls
+    pool = feature_pool.create(cfg.loop.vocab_size, window=cfg.pool.max_frames, device=cuda)
+    weights = []
+    for f, (ids, q) in enumerate(comp["pool"]):
+        pool = feature_pool.remove_old(feature_pool.observe_batch(pool, torch.from_numpy(ids).to(cuda),
+                                                                  f), f)
+        weights.append(feature_pool.covisibility_weights(pool, torch.from_numpy(q).to(cuda)).cpu().numpy())
+    out["pool"] = {"weights": weights, **{k: getattr(pool, k).cpu().numpy()
+                                         for k in ("first_seen", "last_seen", "num_sightings")}}
+    images0, images1, gmin, glo = comp["streams"]
+    params = sp.load_params(device=cuda)
+    states = tracker.init_states_batched(params, torch.from_numpy(images0).to(cuda), cfg)
+    _, step = tracker.track_step_batched(params, states, torch.from_numpy(images1).to(cuda), cfg,
+                                         torch.from_numpy(gmin).to(cuda), torch.from_numpy(glo).to(cuda))
+    out["streams"] = {k: getattr(step, k).cpu().numpy() for k in ("R", "t", "valid", "num_inliers")}
+    return out
+
+
+def _rot_deg_robust(R, R_ref):
+    """The angle of R R_ref^T from its skew and symmetric parts in f64 (the
+    arccos of the trace alone reads an f32 rotation's own departure from
+    orthonormality as 0.03-0.06 deg)."""
+    dR = np.asarray(R, np.float64) @ np.asarray(R_ref, np.float64).T
+    w = np.array([dR[2, 1] - dR[1, 2], dR[0, 2] - dR[2, 0], dR[1, 0] - dR[0, 1]]) / 2.0
+    return float(np.degrees(np.arctan2(np.linalg.norm(w), (np.trace(dR) - 1.0) / 2.0)))
+
+
+def check_mesh_components(label, runs, ref, bitwise):
+    """Every rank's components against the single-device port on the card:
+    BA at R 1e-4, t 1e-3, cost rtol 1e-3 (bit for bit when `bitwise`), the
+    ring's blocks, the queries and the pool exact, the streams at
+    tests/test_parallel.py's bars (bit for bit when `bitwise`); ranks equal."""
+    failures = []
+    n = len(runs)
+    comps = [r["components"] for r in runs]
+    c0, b = comps[0], comps[0]["ba"]
+    gap = {k: float(np.abs(b[k] - ref["ba"][k]).max()) for k in ("R", "t", "X")}
+    cost_rel = float(np.abs(b["cost"] - ref["ba"]["cost"]).max() / np.abs(ref["ba"]["cost"]).max())
+    same = all(np.array_equal(b[k], ref["ba"][k]) for k in ("R", "t", "X", "cost"))
+    _log(f"[{label}] sharded BA (P=8, L=1024, 10 iterations) on {n} rank(s) vs bundle_adjust on the "
+         f"card: max |dR| {gap['R']:.3g} |dt| {gap['t']:.3g} |dX| {gap['X']:.3g}, cost rel "
+         f"{cost_rel:.3g}; bitwise {same}")
+    if not (gap["R"] <= 1e-4 and gap["t"] <= 1e-3 and cost_rel <= 1e-3) or (bitwise and not same):
+        failures.append(f"sharded BA {gap} cost {cost_rel} bitwise {same}")
+    coll = b["collectives"]
+    _log(f"[{label}] sharded BA wall {1e3 * np.median(b['walls']):.3f} ms a call (median of "
+         f"{len(b['walls'])}; bundle_adjust alone {1e3 * np.median(ref['ba']['walls']):.3f} ms); "
+         f"one call with each collective synchronised: {1e3 * b['timed_wall']:.3f} ms, of which "
+         f"{len(coll)} collectives {1e3 * sum(coll):.3f} ms ({1e3 * np.median(coll):.3f} ms median)")
+    blocks = {k: np.concatenate([c["ring"][k] for c in comps]) for k in ("multihot", "counts",
+                                                                          "frames", "valid")}
+    ring_ok = all(np.array_equal(blocks[k], ref["ring"][k]) for k in blocks) and all(
+        c["ring"]["next_slot"] == ref["ring"]["next_slot"] for c in comps)
+    _log(f"[{label}] LCD ring {blocks['multihot'].shape} after {MESH_LCD_FRAMES} sharded_add_frame "
+         f"calls: rows {'equal' if ring_ok else 'DIFFER'}, cursor {c0['ring']['next_slot']}")
+    q_ok = all(c["query"] == ref["query"] for c in comps)
+    _log(f"[{label}] sharded_query {c0['query']} vs lcd.query {ref['query']}: "
+         f"{'equal' if q_ok else 'DIFFER'}; wall {1e3 * np.median(c0['query_walls']):.3f} ms a query "
+         f"(lcd.query alone {1e3 * np.median(ref['query_walls']):.3f} ms)")
+    pool_ok = all(all(np.array_equal(a, w) for a, w in zip(c["pool"]["weights"], ref["pool"]["weights"]))
+                  and all(np.array_equal(c["pool"][k], ref["pool"][k]) for k in
+                          ("first_seen", "last_seen", "num_sightings")) for c in comps)
+    _log(f"[{label}] word-sharded pool ({ref['pool']['num_sightings'].shape[0]} words, "
+         f"{MESH_POOL_FRAMES} frames): tables and weights {'equal' if pool_ok else 'DIFFER'}")
+    s, rs = c0["streams"], ref["streams"]
+    rot = max(_rot_deg_robust(a, r) for a, r in zip(s["R"], rs["R"]))
+    cos_t = min(float(np.dot(a, r) / (np.linalg.norm(a) * np.linalg.norm(r) + 1e-12))
+                for a, r in zip(s["t"].astype(np.float64), rs["t"].astype(np.float64)))
+    d_inl = int(np.abs(s["num_inliers"].astype(np.int64) - rs["num_inliers"]).max())
+    s_same = all(np.array_equal(s[k], rs[k]) for k in s)
+    _log(f"[{label}] stream-sharded step S={len(s['R'])} ({len(s['R']) // n} a rank) vs "
+         f"track_step_batched: max rot {rot:.4g} deg, min cos t {cos_t:.8f}, inliers within "
+         f"{d_inl}; bitwise {s_same}")
+    if not (rot < 0.05 and cos_t > 0.99999 and d_inl <= 3 and s["valid"].all()) or (
+            bitwise and not s_same):
+        failures.append(f"streams rot {rot} cos {cos_t} inliers {d_inl} bitwise {s_same}")
+    for ok, what in ((ring_ok, "LCD ring"), (q_ok, "LCD query"), (pool_ok, "pool")):
+        if not ok:
+            failures.append(what)
+    for k, c in enumerate(comps[1:], 1):
+        if not (all(np.array_equal(c["ba"][f], b[f]) for f in ("R", "t", "X", "cost"))
+                and c["query"] == c0["query"]
+                and all(np.array_equal(c["streams"][f], s[f]) for f in s)):
+            failures.append(f"rank {k}'s replicated results differ from rank 0's")
+    _require(not failures, f"{label}: " + "; ".join(failures))
+
+
+def check_mesh_engine(label, runs, slam_run, cfg, gt, bitwise):
+    """Every rank's mesh engine: launch counts exact, the ranks bitwise
+    equal, the [slam] run's BA-window count and loop pairs, [slam]'s own
+    bars, and the trajectory against the single-device [slam] run: bit for
+    bit when `bitwise`, else within MESH_SLAM_ALIGNED_BAR (similarity-aligned
+    RMSE) and MESH_SLAM_ATE_BAR (ATE change). Returns rank 0's engine."""
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    failures = []
+    e0 = runs[0]["engine"]
+    n = len(e0["walls"])
+    for r in runs:
+        e, v = r["engine"], r["engine"]["verifications"]
+        expected = {"detector_postproc": n, "windowed_match": n - 1,
+                    "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v,
+                    "svd3": 3 * (n - 1) + 3 * v, "fused_stem": n}
+        if e["launches"] != expected:
+            failures.append(f"rank {r['rank']} launches {e['launches']}, expected {expected}")
+    _log(f"[{label}] {len(runs)} rank(s) over {runs[0]['backend']} on {runs[0]['device']}, {n} "
+         f"frames at {H}x{W}; rank 0 kernels {json.dumps(e0['launches'])} ({e0['verifications']} "
+         f"loop verifications)")
+    for r in runs[1:]:
+        e = r["engine"]
+        same = (np.array_equal(e["poses"], e0["poses"]) and e["loops"] == e0["loops"]
+                and len(e["ba_walls"]) == len(e0["ba_walls"]) and e["stats"] == e0["stats"]
+                and e["kf_frames"] == e0["kf_frames"])
+        if not same:
+            failures.append(f"rank {r['rank']} differs from rank 0")
+    single = slam_run["slam"]
+    windows = len(slam_run["ba_windows"])
+    ref = np.stack(single.poses)
+    gap = np.abs(e0["poses"][:, :3, 3] - ref[:, :3, 3]).max(-1)
+    aligned = evaluation.ate(e0["poses"], ref)["ate_rmse"]
+    ate_single = evaluation.ate(ref, gt)["ate_rmse"]
+    same = np.array_equal(e0["poses"], ref)
+    st = e0["stats"]
+    lost = {j + 1 for j, s in enumerate(st) if not s["valid"]}
+    inl = [s["inliers"] for s in st]
+    pairs = [(f, m) for f, m, _, _ in e0["loops"]]
+    full = evaluation.ate(e0["poses"], gt)["ate_rmse"]
+    odo = evaluation.ate(e0["odometry"], gt)["ate_rmse"]
+    _log(f"[{label}] ranks bitwise equal: {not any('differs' in f for f in failures)}; BA windows "
+         f"{len(e0['ba_walls'])} ([slam] {windows}); loop closures {[(f, m, i) for f, m, i, _ in e0['loops']]} "
+         f"([slam] {[(e.frame, e.matched_frame, e.num_inliers) for e in single.loop_events]}); "
+         f"valid {n - 1 - len(lost)}/{n - 1} (not valid {sorted(lost)}); inliers median {np.median(inl)}")
+    _log(f"[{label}] vs the single-device [slam] run: max |dt| {gap.max():.6g} m (frame "
+         f"{int(gap.argmax())}), aligned RMSE {aligned:.6g} m (bar "
+         f"{0 if bitwise else MESH_SLAM_ALIGNED_BAR}), bitwise {same}; ATE full {full:.4f} m "
+         f"([slam] {ate_single:.4f} m, bar +-{0 if bitwise else MESH_SLAM_ATE_BAR}), odometry "
+         f"{odo:.4f} m (ratio {full / odo:.4f})")
+    wall = np.array(e0["walls"][1:]) * 1e3
+    _log(f"[{label}] rank 0: a frame median {np.median(wall):.3f} ms, p90 "
+         f"{np.percentile(wall, 90):.3f} ms, {n / sum(e0['walls']):.2f} frames/s; sharded BA "
+         f"{len(e0['ba_walls'])} calls, median {1e3 * np.median(e0['ba_walls']):.3f} ms; sharded LCD "
+         f"query {len(e0['query_walls'])} calls, median {1e3 * np.median(e0['query_walls']):.3f} ms")
+    checks = [
+        (len(e0["ba_walls"]) == windows, f"BA windows {len(e0['ba_walls'])}, [slam] {windows}"),
+        (pairs == [(e.frame, e.matched_frame) for e in single.loop_events], f"loop pairs {pairs}"),
+        (lost <= SLAM_LOST_AS_JAX, f"steps not valid at {sorted(lost)}"),
+        (np.median(inl) >= SLAM_MIN_MEDIAN_INLIERS, f"median inliers {np.median(inl)}"),
+        (full < SLAM_ATE_RATIO * odo, f"ATE {full} not below {SLAM_ATE_RATIO} x {odo}"),
+        (same if bitwise else (aligned <= MESH_SLAM_ALIGNED_BAR
+                               and abs(full - ate_single) <= MESH_SLAM_ATE_BAR),
+         f"trajectory: bitwise {same}, aligned RMSE {aligned}, ATE {full} against {ate_single}"),
+    ]
+    failures += [what for ok, what in checks if not ok]
+    _require(not failures, f"{label}: " + "; ".join(failures))
+    return e0
+
+
+def phase_mesh(cfg, streams, noises_b, slam_run, renders):
+    """[mesh] and [mesh-slam]: MESH_RANKS gloo ranks sharing the card run
+    the components, then the mesh engine over [slam]'s scene."""
+    comp, scene = mesh_inputs(cfg, streams, noises_b, slam_run, renders)
+    ref = _mesh_references(cfg, comp)
+    runs = _spawn_mesh("mesh", MESH_RANKS, cfg, comp, scene)
+    _require(all(r["backend"] == "gloo" for r in runs), "mesh: the shared card's ranks are not on gloo")
+    check_mesh_components("mesh", runs, ref, bitwise=False)
+    return comp, scene, ref, runs
+
+
+def phase_mesh_slam(cfg, slam_run, runs):
+    return check_mesh_engine("mesh-slam", runs, slam_run, cfg, slam_run["gt"], bitwise=False)
+
+
+def phase_mesh_nccl(cfg, slam_run, comp, scene, ref):
+    """[mesh-nccl]: one rank over NCCL, the same components and the mesh
+    engine over [slam]'s scene; bitwise equal to the single-device port."""
+    runs = _spawn_mesh("mesh-nccl", 1, cfg, comp, scene)
+    _require(runs[0]["backend"] == "nccl", f"mesh-nccl: backend {runs[0]['backend']}")
+    check_mesh_components("mesh-nccl", runs, ref, bitwise=True)
+    return check_mesh_engine("mesh-nccl", runs, slam_run, cfg, slam_run["gt"], bitwise=True)
 
 
 def phase_profile_slam(cfg, run, warm=8, frames=8):
@@ -2061,6 +2536,10 @@ def main():
     _phased("resume", phase_resume, cfg, slam_run)
     _phased("elastic", phase_elastic, cfg, frames)
     _phased("host-pool", phase_host_pool)
+    comp, scene, mesh_ref, mesh_runs = _phased("mesh", phase_mesh, cfg, streams, noises_b, slam_run,
+                                               renders)
+    mesh_engine = _phased("mesh-slam", phase_mesh_slam, cfg, slam_run, mesh_runs)
+    _phased("mesh-nccl", phase_mesh_nccl, cfg, slam_run, comp, scene, mesh_ref)
     single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
     batched_ms = float(np.median(b_times[1:]) * 1e3)
     _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")
@@ -2080,6 +2559,10 @@ def main():
     # carry the [slam] run's launch counts beside the same measurements.
     rows += [dict(r, launches=slam_run["launches"][r["name"]],
                   shape=f"{r['shape']}; launches of the [slam] run ({SLAM_FRAMES} frames)")
+             for r in rows[:len(kernels.MODULES)]]
+    rows += [dict(r, launches=mesh_engine["launches"][r["name"]],
+                  shape=f"{r['shape']}; launches of rank 0 of the [mesh-slam] run ({MESH_RANKS} "
+                        f"ranks, {SLAM_FRAMES} frames)")
              for r in rows[:len(kernels.MODULES)]]
     _log(f"[done] {time.perf_counter() - t_all:.1f} s")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

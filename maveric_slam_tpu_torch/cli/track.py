@@ -5,7 +5,7 @@ maveric_slam_tpu/cli/track.py):
       [--img-glob '*.png'] [--skip N] [--max-frames N] [--no-ba]
       [--no-loop-closure] [--gt poses.txt] [--gt-offset N] [--plot]
       [--checkpoint ckpt/ [--checkpoint-every N]] [--resume ckpt/]
-      [--seed N] [--device cpu]
+      [--seed N] [--device cpu] [--mesh N]
 
 Writes KITTI-format poses (poses.txt), a PLY polyline (trajectory.ply),
 with --gt the ATE/RPE metrics (metrics.json), and with --plot a top-down
@@ -15,6 +15,15 @@ end (utils/checkpoint.py), and every N frames with --checkpoint-every N;
 It runs on the CUDA device unless `--device cpu` is given; `--seed` seeds
 the RANSAC noise. Decoding the images needs cv2 or PIL; the plot needs
 matplotlib.
+
+--mesh N runs the mesh-mode engine over N ranks (SlamSystem(mesh=...):
+window BA sharded by landmark, the LCD database by frame, the pool by
+word). Under torchrun with WORLD_SIZE = N this process is one rank
+(`torchrun --nproc-per-node N -m maveric_slam_tpu_torch.cli.track ...
+--mesh N`); otherwise it starts the N ranks itself. Each rank runs on its
+own card when there are enough (NCCL), else on the card they share, or on
+the CPU with --device cpu (gloo). Only rank 0 writes or prints results.
+A mesh run cannot be checkpointed yet.
 """
 
 import argparse
@@ -42,8 +51,36 @@ def main(argv=None) -> None:
     parser.add_argument("--plot", action="store_true")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    parser.add_argument(
+        "--mesh", type=int, default=0,
+        help="run the engine over an N-rank mesh (window BA landmark-sharded, LCD frame-sharded, "
+        "pool word-sharded); 0 = one device")
     args = parser.parse_args(argv)
+    if args.mesh and (args.checkpoint or args.resume):
+        parser.error("--checkpoint and --resume do not work with --mesh")
+    if not args.mesh:
+        _run(args)
+        return
+    from ..parallel import mesh as mesh_lib
 
+    world = os.environ.get("WORLD_SIZE")
+    if world is None:
+        mesh_lib.spawn(_run, args.mesh, args=(args,), device=args.device, timeout_s=None)
+        return
+    if int(world) != args.mesh:
+        parser.error(f"--mesh {args.mesh} under a launcher with WORLD_SIZE={world}")
+    import torch.distributed as dist
+
+    mesh_lib.maybe_init_distributed(args.device)
+    try:
+        _run(args)
+    finally:
+        dist.destroy_process_group()
+
+
+def _run(args) -> None:
+    """The engine over the sequence: one device, or (args.mesh) this rank of
+    the mesh, in a process that has joined its process group."""
     from ..config import DEFAULT_CONFIG
     from ..data import kitti
     from ..models import superpoint as sp
@@ -52,13 +89,23 @@ def main(argv=None) -> None:
     from ..utils import checkpoint, evaluation, trajectory
 
     cfg = DEFAULT_CONFIG
-    dev = resolve_device(args.device)
+    mesh = None
+    if args.mesh:
+        from ..parallel import mesh as mesh_lib
+
+        mesh = mesh_lib.make_mesh(args.mesh, device=args.device)
+        dev = mesh.device
+    else:
+        dev = resolve_device(args.device)
+    lead = mesh is None or mesh.rank == 0  # the process that writes and prints
+    say = print if lead else (lambda *a, **k: None)
     seq = kitti.ImageSequence(args.image_dir, cfg.frontend.height, cfg.frontend.width,
                               img_glob=args.img_glob, skip=args.skip)
-    os.makedirs(args.out_dir, exist_ok=True)
     slam = SlamSystem(sp.load_params(device=dev), cfg, seed=args.seed,
                       ba_every=0 if args.no_ba else 4,
-                      enable_loop_closure=not args.no_loop_closure, device=dev)
+                      enable_loop_closure=not args.no_loop_closure, device=dev, mesh=mesh)
+    if mesh is not None:
+        say(f"mesh of {mesh.size} ranks over {mesh.backend} on {dev}")
     start = 0
     if args.resume:
         checkpoint.restore(slam, args.resume)
@@ -72,9 +119,12 @@ def main(argv=None) -> None:
                 checkpoint.save(slam, args.checkpoint)
             if slam.stats and i % 10 == 0:
                 s = slam.stats[-1]
-                print(f"frame {i}/{n}: matches={s['matches']} inliers={s['inliers']}"
-                      f" scale={s['scale']:.3f}")
+                say(f"frame {i}/{n}: matches={s['matches']} inliers={s['inliers']}"
+                    f" scale={s['scale']:.3f}")
         poses = slam.trajectory()
+    if not lead:
+        return
+    os.makedirs(args.out_dir, exist_ok=True)
     trajectory.save_kitti_poses(os.path.join(args.out_dir, "poses.txt"), poses)
     trajectory.write_ply(os.path.join(args.out_dir, "trajectory.ply"), poses[:, :3, 3])
     print(f"wrote {args.out_dir}/poses.txt ({len(poses)} poses)")

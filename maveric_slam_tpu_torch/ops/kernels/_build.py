@@ -5,7 +5,11 @@ process (all started together), then the objects are linked into one shared
 library that is loaded with `ctypes`. The library's name carries a hash of
 the sources and flags, so an edited source is never served from a stale
 build. Output goes to `build/maveric_slam_tpu_torch/` beside the package,
-a directory `.gitignore` lists.
+a directory `.gitignore` lists. Processes that build at once (the ranks of
+a mesh on a fresh checkout) take turns under a file lock there: the first
+compiles, the others find its library when the lock comes to them. The
+library is linked under a temporary name and renamed into place, so no
+process loads a torn file.
 
 Flags: `sm_90a` (Hopper), `-O3`, and `-fmad=false`. No fast math, and no
 contraction of a multiply and an add into an FMA: the detector's Taylor
@@ -19,6 +23,7 @@ what was compiled (cuobjdump, beside nvcc).
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -71,12 +76,24 @@ def _digest() -> str:
 
 
 def build() -> Path:
-    """Compile the sources (in parallel) and link them; returns the .so path."""
-    global build_seconds, build_log
+    """Compile the sources (in parallel) and link them, unless built
+    already; returns the .so path."""
     so = BUILD_DIR / f"libmaveric_slam_kernels_{_digest()}.so"
     if so.exists():
         return so
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # flock is released when its holder exits, so a killed build leaves no
+    # stale lock behind.
+    with open(BUILD_DIR / f"{so.stem}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if so.exists():  # built by another process while this one waited
+            return so
+        _compile_and_link(so)
+    return so
+
+
+def _compile_and_link(so: Path) -> None:
+    global build_seconds, build_log
     nvcc = _nvcc()
     t0 = time.perf_counter()
     procs = []
@@ -101,7 +118,6 @@ def build() -> Path:
     os.replace(tmp, so)
     build_seconds = time.perf_counter() - t0
     build_log = "\n".join(logs)
-    return so
 
 
 def library() -> ctypes.CDLL:

@@ -24,6 +24,17 @@ engine's device, seeded `seed + 1`. `process` takes injected tracking noise
 and `verify_noise` supplies the verifications' noise, so that tests can
 feed the JAX package's draws; the main path uses neither.
 
+Mesh mode (`mesh=`, parallel/mesh.py). Every rank of the mesh runs the
+engine on the same frames: tracking, the host bookkeeping, loop
+verification and the pose graph are replicated (the same seeds on every
+rank), while the window BA shards its landmarks over the ranks
+(parallel/sharded_ba), the LCD database its frames (loopclosure/
+sharded_lcd) and the covisibility pool its words (mapping/sharded_pool).
+Each rank's packed step buffer holds the whole sighting table, gathered
+from the pool's blocks. Once a frame the ranks compare a digest of that
+buffer, so ranks that drift apart raise rather than wait forever in
+different collectives.
+
 Pose bookkeeping: self.poses[k] is T_w_ck (camera-to-world, KITTI format).
 """
 
@@ -39,11 +50,13 @@ from .backend import ba, pose_graph
 from .config import SlamConfig
 from .frontend import tracker as trk
 from .geometry import epipolar, ransac
-from .loopclosure import lcd, vocab as vocab_lib
-from .mapping import feature_pool
+from .loopclosure import lcd, sharded_lcd, vocab as vocab_lib
+from .mapping import feature_pool, sharded_pool
 from .ops import matching
 from .ops.backend import resolve_device
 from .ops.kernels import _build
+from .parallel import mesh as mesh_lib
+from .parallel import sharded_ba
 from .tracks import TrackTable
 from .utils.trajectory import compose_trajectory
 
@@ -210,8 +223,9 @@ def _verify_loop_device(flat: torch.Tensor, config: SlamConfig, top_n: int,
 
 
 class SlamSystem:
-    """The single-device engine on `device` (None: CUDA; raises without a
-    card). `verify_noise`, if given, maps the k-th loop verification
+    """The engine on `device` (None: CUDA; raises without a card), or, with
+    `mesh` (a parallel.mesh.Mesh), one rank of the mesh-mode engine on the
+    mesh's device. `verify_noise`, if given, maps the k-th loop verification
     (k = 0, 1, ...) to its RANSAC noise (gumbel_min, gumbel_lo)."""
 
     def __init__(
@@ -224,8 +238,12 @@ class SlamSystem:
         fetch_delay: int = 0,
         device=None,
         verify_noise: Optional[Callable[[int], tuple]] = None,
+        mesh: Optional[mesh_lib.Mesh] = None,
     ):
-        self.device = resolve_device(device)
+        if mesh is not None and device is not None and resolve_device(device) != mesh.device:
+            raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        self.mesh = mesh
         self.params = params
         self.config = config
         self.seed = seed
@@ -265,15 +283,19 @@ class SlamSystem:
 
         if enable_loop_closure:
             self.vocab = vocab_lib.load_reference_vocabulary(device=self.device)
-            self.db = lcd.create_database(config.loop.max_db_frames, config.loop.vocab_size,
-                                          device=self.device)
+            if mesh is None:
+                self.db = lcd.create_database(config.loop.max_db_frames, config.loop.vocab_size,
+                                              device=self.device)
+                self.pool = feature_pool.create(config.loop.vocab_size,
+                                                window=config.pool.max_frames, device=self.device)
+            else:  # blocks of the ring's frames and of the vocabulary's words
+                self.db = sharded_lcd.create_database(config.loop.max_db_frames,
+                                                      config.loop.vocab_size, mesh)
+                self.pool = sharded_pool.create(config.loop.vocab_size, config.pool.max_frames, mesh)
             # Per-keyframe features for loop verification, aligned with the
             # database's slots (each entry records the frame that wrote it, so
             # a slot reused after the ring wraps is detected).
             self.kf_store: List[Optional[dict]] = [None] * config.loop.max_db_frames
-            # Covisibility store: word -> sightings over the recent frame window.
-            self.pool = feature_pool.create(config.loop.vocab_size, window=config.pool.max_frames,
-                                            device=self.device)
             self._packer = _StepPacker(config.frontend.top_n, config.loop.vocab_size)
         else:
             self._packer = _StepPacker(config.frontend.top_n, 1)
@@ -296,9 +318,14 @@ class SlamSystem:
         if self.enable_loop_closure:
             wa = vocab_lib.assign_words(step.desc_top, step.desc_scale, step.cells_new >= 0,
                                         self.vocab).word_id
-            self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
+            if self.mesh is None:
+                self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
+            else:
+                self.pool = sharded_pool.observe_batch(self.pool, wa, self.frame_idx, self.mesh)
             self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
-            packed = self._packer.pack(step, wa, self.pool.num_sightings)
+            sightings = (self.pool.num_sightings if self.mesh is None
+                         else sharded_pool.gather_sightings(self.pool, self.mesh))
+            packed = self._packer.pack(step, wa, sightings)
         else:
             wa = None
             packed = self._packer.pack(step)
@@ -331,7 +358,10 @@ class SlamSystem:
         """Host-side bookkeeping for one tracked frame: `fetch` holds the
         packed step buffer's host copy, `wa` the device-resident word ids
         the keyframe LCD path uses."""
-        step = self._packer.unpack(fetch.result())
+        flat = fetch.result()
+        if self.mesh is not None:
+            mesh_lib.check_replicas(flat, self.mesh, f"frame {fidx}")
+        step = self._packer.unpack(flat)
         R = np.asarray(step.R)
         t = np.asarray(step.t)
         self.rel_poses.append((R, t))
@@ -423,19 +453,25 @@ class SlamSystem:
             uv = np.concatenate([uv, np.zeros((uv.shape[0], pad, 2), np.float32)], 1)
             mask = np.concatenate([mask, np.zeros((mask.shape[0], pad), bool)], 1)
 
-        # One upload for the whole problem and one buffer for the whole
-        # solve. Two anchors: the gauge and the monocular scale (a single
-        # anchor lets BA slide the window's scale, which shows up directly as
-        # ATE drift).
-        flat = np.concatenate([
-            R_cw.ravel(),
-            t_cw.ravel(),
-            np.nan_to_num(X0).astype(np.float32).ravel(),
-            uv.ravel(),
-            mask.astype(np.float32).ravel(),
-        ])
-        packed = _window_ba_packed(torch.from_numpy(flat).to(self.device), self.config,
-                                   self.config.ba.max_iterations, 2)
+        # Two anchors: the gauge and the monocular scale (a single anchor lets
+        # BA slide the window's scale, which shows up directly as ATE drift).
+        X0 = np.nan_to_num(X0).astype(np.float32)
+        if self.mesh is None:
+            # One upload for the whole problem and one buffer for the whole solve.
+            flat = np.concatenate([R_cw.ravel(), t_cw.ravel(), X0.ravel(), uv.ravel(),
+                                   mask.astype(np.float32).ravel()])
+            packed = _window_ba_packed(torch.from_numpy(flat).to(self.device), self.config,
+                                       self.config.ba.max_iterations, 2)
+        else:
+            bc = self.config.ba
+            problem = ba.BAProblem(K=self.config.working_camera.K, R=R_cw, t=t_cw, X=X0, uv=uv,
+                                   mask=mask)
+            solved, _costs = sharded_ba.sharded_bundle_adjust(
+                sharded_ba.shard_problem(problem, self.mesh), self.mesh,
+                iterations=bc.max_iterations, damping=bc.lm_damping, huber_delta=bc.huber_delta,
+                num_anchored=2)
+            packed = torch.cat([solved.R.reshape(-1), solved.t.reshape(-1),
+                                sharded_ba.gather_landmarks(solved.X, self.mesh).reshape(-1)])
         self._pending_ba = (frames, _HostCopy(packed), uv, mask, tids, n_real)
 
     def _apply_pending_ba(self) -> None:
@@ -572,10 +608,15 @@ class SlamSystem:
             return
         self._last_kf = fidx
         cfg = self.config.loop
-        res = lcd.query(self.db, wa, current_frame=fidx, min_frame_gap=cfg.min_frame_gap,
-                        min_score=cfg.min_score)
-        slot = self.db.next_slot
-        self.db = lcd.add_frame(self.db, wa, fidx)
+        slot = self.db.next_slot  # the global ring slot, in mesh mode too
+        if self.mesh is None:
+            res = lcd.query(self.db, wa, current_frame=fidx, min_frame_gap=cfg.min_frame_gap,
+                            min_score=cfg.min_score)
+            self.db = lcd.add_frame(self.db, wa, fidx)
+        else:
+            res = sharded_lcd.sharded_query(self.db, wa, self.mesh, fidx,
+                                            min_frame_gap=cfg.min_frame_gap, min_score=cfg.min_score)
+            self.db = sharded_lcd.sharded_add_frame(self.db, wa, fidx, self.mesh)
         packed = torch.stack([res.best.to(torch.float32), res.best_frame.to(torch.float32),
                               res.best_score])
         cur_entry = {

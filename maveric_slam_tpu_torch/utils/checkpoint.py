@@ -26,6 +26,9 @@ In-flight work. At fetch_delay > 0 the engine holds frames, a BA solve and
 loop decisions that it has not applied yet; `save` raises ValueError then
 rather than write a checkpoint that drops them (the JAX package's `save`
 drops them). At fetch_delay 0 nothing is pending between `process` calls.
+
+A mesh-mode engine (`SlamSystem(mesh=...)`) holds only its rank's blocks
+of the database and the pool; `save` and `restore` refuse it.
 """
 
 from __future__ import annotations
@@ -124,8 +127,15 @@ def engine_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
     return arrays, meta
 
 
+def _refuse_mesh(slam: "SlamSystem") -> None:
+    if slam.mesh is not None:
+        raise ValueError("checkpointing a mesh-mode engine is not supported: each rank holds only "
+                         "its blocks of the loop-closure database and the pool")
+
+
 def save(slam: "SlamSystem", path: str) -> None:
     """Write the engine's state to the checkpoint directory `path`."""
+    _refuse_mesh(slam)
     if slam._pending or slam._pending_ba is not None or slam._pending_loops:
         raise ValueError(
             "the engine holds work in flight (fetch_delay > 0): a checkpoint now would drop "
@@ -157,6 +167,7 @@ def _generator(state: np.ndarray, device: torch.device) -> torch.Generator:
 def restore(slam: "SlamSystem", path: str) -> None:
     """Load a checkpoint (written by either package) into a fresh
     SlamSystem, on the engine's device."""
+    _refuse_mesh(slam)
     from ..frontend.tracker import TrackerState
     from ..loopclosure.lcd import LoopDatabase
     from ..mapping.feature_pool import DevicePool

@@ -691,3 +691,49 @@ def test_pose_graph_card_vs_cpu(cuda):
     after = np.linalg.norm(og.t.cpu().numpy()[:21] - t_gt, axis=-1)
     before = np.linalg.norm(fields[1][:21] - t_gt, axis=-1)
     assert float(cg[-1]) < float(cg[0]) / 100 and after.mean() < before.mean()
+
+
+def test_mesh_nccl_world_size_one(cuda):
+    """The sharded layer through the NCCL path: one rank on the card
+    (`parallel.mesh.spawn`, NCCL chosen because the rank has a card of its
+    own). Landmark-sharded BA at P = 8, L = 1024 is the single-device
+    `bundle_adjust` bit for bit on a mesh of one; the LCD ring, a query and
+    the word-sharded pool equal the single-device functions on the CPU."""
+    import chip_smoke
+    import torch_mesh_worker as worker
+    from maveric_slam_tpu_torch.loopclosure import lcd
+    from maveric_slam_tpu_torch.mapping import feature_pool
+    from maveric_slam_tpu_torch.parallel import mesh as tmesh
+
+    scene, _ = chip_smoke.ba_scene()
+    rng = np.random.default_rng(7)
+    sets = [rng.choice(2048, 64, replace=False).astype(np.int32) for _ in range(40)]
+    frames = [rng.integers(-1, 2048, (96,)).astype(np.int32) for _ in range(6)]
+    queries = [rng.integers(-1, 2048, (64,)).astype(np.int32) for _ in range(6)]
+    spec = {
+        "ba": ("solve_ba", 1, "ldmk", dict(problem=scene, iterations=10)),
+        "single": ("single_ba", 1, "ldmk", dict(problem=scene, iterations=10)),
+        "ring": ("lcd_ring", 1, "lcdf", dict(frame_sets=sets, cap=32, vocab=2048)),
+        "query": ("lcd_queries", 1, "lcdf", dict(frame_sets=sets, cap=32, vocab=2048,
+                                                  probes=[sets[3], sets[39]], current=40, gap=4,
+                                                  min_score=0.05)),
+        "pool": ("pool_run", 1, "word", dict(frames=frames, queries=queries, vocab=2048, window=4)),
+    }
+    (r,) = tmesh.spawn(worker.components, 1, args=(spec, None), timeout_s=300)
+    assert r["backend"] == "nccl"
+    for k in ("R", "t", "X", "cost"):
+        np.testing.assert_array_equal(r["ba"][k], r["single"][k], k)
+    db = lcd.create_database(32, 2048)
+    for f, ids in enumerate(sets):
+        db = lcd.add_frame(db, torch.from_numpy(ids), f)
+    for name in ("multihot", "counts", "frames", "valid"):
+        np.testing.assert_array_equal(r["ring"][name], getattr(db, name).numpy(), name)
+    want = [lcd.query(db, torch.from_numpy(ids), 40, min_frame_gap=4, min_score=0.05)
+            for ids in (sets[3], sets[39])]
+    assert r["query"] == [(int(w.best), int(w.best_frame), float(w.best_score)) for w in want]
+    pool = feature_pool.create(2048, window=4)
+    for f, (ids, q) in enumerate(zip(frames, queries)):
+        pool = feature_pool.remove_old(feature_pool.observe_batch(pool, torch.from_numpy(ids), f), f)
+        np.testing.assert_array_equal(
+            r["pool"]["weights"][f], feature_pool.covisibility_weights(pool, torch.from_numpy(q)).numpy())
+    np.testing.assert_array_equal(r["pool"]["num_sightings"], pool.num_sightings.numpy())

@@ -1,0 +1,219 @@
+"""What each rank of the port's mesh runs in the mesh tests.
+
+Imported by the ranks that `maveric_slam_tpu_torch.parallel.mesh.spawn`
+starts (and by the tests that start them), so it imports neither JAX nor
+the JAX package: every input arrives as numpy arrays from the test process,
+which runs the JAX reference itself, and every result goes back as numpy.
+Each function returns this rank's view; the tests compare the ranks too.
+"""
+
+from __future__ import annotations
+
+import sys
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from maveric_slam_tpu_torch.backend import ba
+from maveric_slam_tpu_torch.loopclosure import lcd, sharded_lcd
+from maveric_slam_tpu_torch.mapping import feature_pool, sharded_pool
+from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+from maveric_slam_tpu_torch.parallel import sharded_ba, sharded_tracker
+
+
+def _np(t: torch.Tensor) -> np.ndarray:
+    return t.detach().cpu().numpy()
+
+
+def solve_ba(problem, iterations: int, mesh) -> dict:
+    """sharded_bundle_adjust of a whole numpy problem (K, R, t, X, uv, mask)
+    on `mesh`; R, t, the gathered X and the per-iteration costs."""
+    solved, costs = sharded_ba.sharded_bundle_adjust(
+        sharded_ba.shard_problem(ba.BAProblem(*problem), mesh), mesh, iterations=iterations)
+    return {"R": _np(solved.R), "t": _np(solved.t),
+            "X": _np(sharded_ba.gather_landmarks(solved.X, mesh)), "cost": _np(costs)}
+
+
+def single_ba(problem, iterations: int, mesh) -> dict:
+    """The single-device bundle_adjust of the same problem on this rank's
+    device."""
+    solved, stats = ba.bundle_adjust(
+        ba.BAProblem(*(torch.as_tensor(a).to(mesh.device) for a in problem)), iterations=iterations)
+    return {"R": _np(solved.R), "t": _np(solved.t), "X": _np(solved.X),
+            "cost": _np(stats.cost[:-1])}
+
+
+def lcd_ring(frame_sets, cap: int, vocab: int, mesh) -> dict:
+    """A database built only through sharded_add_frame (the ring wraps)."""
+    db = sharded_lcd.create_database(cap, vocab, mesh)
+    for f, ids in enumerate(frame_sets):
+        db = sharded_lcd.sharded_add_frame(db, torch.from_numpy(ids).to(mesh.device), f, mesh)
+    out = {name: _np(mesh_lib.all_gather(getattr(db, name), mesh).reshape(cap, *getattr(
+        db, name).shape[1:])) for name in ("multihot", "counts", "frames", "valid")}
+    return {**out, "next_slot": db.next_slot}
+
+
+def lcd_queries(frame_sets, cap: int, vocab: int, probes, current: int, gap: int,
+                min_score: float, mesh) -> list:
+    """sharded_query of each probe's word set against the whole database
+    built by lcd.add_frame and then sharded: [(best, best_frame, best_score)]."""
+    db = lcd.create_database(cap, vocab, device=mesh.device)
+    for f, ids in enumerate(frame_sets):
+        db = lcd.add_frame(db, torch.from_numpy(ids).to(mesh.device), f)
+    sdb = sharded_lcd.shard_database(db, mesh)
+    out = []
+    for ids in probes:
+        r = sharded_lcd.sharded_query(sdb, torch.from_numpy(ids).to(mesh.device), mesh, current,
+                                      min_frame_gap=gap, min_score=min_score)
+        out.append((int(r.best), int(r.best_frame), float(r.best_score)))
+    return out
+
+
+def pool_run(frames, queries, vocab: int, window: int, mesh) -> dict:
+    """The word-sharded pool over a run of frames: the covisibility weights
+    of a query after each frame, and the whole tables at the end."""
+    pool = sharded_pool.shard_pool(feature_pool.create(vocab, window=window), mesh)
+    weights = []
+    for f, (ids, q) in enumerate(zip(frames, queries)):
+        pool = sharded_pool.observe_batch(pool, torch.from_numpy(ids).to(mesh.device), f, mesh)
+        pool = feature_pool.remove_old(pool, f)
+        weights.append(_np(sharded_pool.covisibility_weights(pool, torch.from_numpy(q).to(mesh.device),
+                                                             mesh)))
+    tables = {name: _np(mesh_lib.all_gather(getattr(pool, name), mesh).reshape(-1))
+              for name in ("first_seen", "last_seen", "num_sightings")}
+    last = len(frames) - 1
+    whole = feature_pool.DevicePool(*(torch.from_numpy(tables[n]) for n in
+                                      ("first_seen", "last_seen", "num_sightings")),
+                                    coords=torch.zeros(vocab, 3), window=window)
+    return {"weights": weights, **tables,
+            "invariant": int(feature_pool.check_invariant(whole, last))}
+
+
+def tracker_step(config, images0, images1, gumbel_min, gumbel_lo, mesh) -> dict:
+    """One stream-sharded tracking step from batched states of the first
+    frames (S streams, S / n a rank), the noise injected; the gathered
+    results."""
+    from maveric_slam_tpu_torch.frontend import tracker as trk
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    params = sharded_tracker.replicate_params(sp.load_params(device="cpu"), mesh)
+    states = trk.init_states_batched(params, torch.from_numpy(images0).to(mesh.device), config)
+    states, images = sharded_tracker.shard_streams(states, torch.from_numpy(images1), mesh)
+    _, step = trk.track_step_batched(
+        params, states, images, config,
+        sharded_tracker.local_streams(torch.from_numpy(gumbel_min), mesh),
+        sharded_tracker.local_streams(torch.from_numpy(gumbel_lo), mesh))
+    full = sharded_tracker.gather_steps(step, mesh)
+    return {f: _np(getattr(full, f)) for f in ("R", "t", "valid", "num_matches", "num_inliers")}
+
+
+def components(spec: dict, device="cpu") -> dict:
+    """Every case of `spec` ({name: (function name, mesh shape, axis names,
+    kwargs)}) on this rank, with a mesh of that shape on `device`."""
+    out = {"axis_index": {}}
+    for name, (fn, shape, axes, kw) in spec.items():
+        mesh = mesh_lib.make_mesh(shape, axes, device=device)
+        out[name] = globals()[fn](**kw, mesh=mesh)
+        out["axis_index"][name] = [mesh_lib.axis_index(mesh, a) for a in mesh.axis_names]
+    out["rank"], out["backend"] = dist.get_rank(), dist.get_backend()
+    out["jax_modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "maveric_slam_tpu"))
+    return out
+
+
+def engine(config, frames, step_noise, verify_noise=None, fetch_delay: int = 0, mesh=None,
+           device="cpu", checkpoint_dir=None) -> dict:
+    """The port's SlamSystem (loop closure on, BA every 4) over the frames
+    with the tracking noise injected (and the verifications' noise, unless
+    None): on `mesh` (a rank of the mesh-mode engine), or alone on `device`.
+    What the tests compare: the trajectory,
+    the odometry steps, every unpacked step, the solved BA windows, the
+    keyframes and loop events; with `checkpoint_dir`, whether
+    `checkpoint.save` refused the engine."""
+    from maveric_slam_tpu_torch import slam as tslam
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    dev = device if mesh is None else mesh.device
+    slam = tslam.SlamSystem(sp.load_params(device=dev), config, ba_every=4,
+                            enable_loop_closure=True, fetch_delay=fetch_delay, device=dev,
+                            mesh=mesh,
+                            verify_noise=None if verify_noise is None else verify_noise.__getitem__)
+    views, windows = [], []
+    unpack, dispatch = slam._packer.unpack, slam._dispatch_window_ba
+
+    def keep(flat):
+        v = unpack(flat)
+        views.append({k: np.copy(getattr(v, k)) for k in (
+            "cells_new", "word_ids", "sightings", "num_matches", "num_inliers", "valid")})
+        return v
+
+    def solve(fidx):
+        dispatch(fidx)
+        if slam._pending_ba is not None:
+            windows.append(fidx)
+
+    slam._packer.unpack, slam._dispatch_window_ba = keep, solve
+    slam.process(frames[0])
+    for f, noise in zip(frames[1:], step_noise):
+        slam.process(f, *noise)
+    slam.close()
+    out = {"poses": np.stack(slam.poses), "rel": [(R, t) for R, t in slam.rel_poses],
+           "stats": slam.stats, "views": views, "windows": windows, "kf_frames": slam.kf_frames,
+           "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events],
+           "next_slot": slam.db.next_slot}
+    if checkpoint_dir is not None:
+        try:
+            checkpoint.save(slam, checkpoint_dir)
+            out["checkpoint_refused"] = False
+        except ValueError:
+            out["checkpoint_refused"] = True
+    return out
+
+
+def mesh_engine(config, frames, step_noise, verify_noise, checkpoint_dir=None,
+                device="cpu") -> dict:
+    """`engine` as one rank of the 1-D mesh over every rank."""
+    return engine(config, frames, step_noise, verify_noise,
+                  mesh=mesh_lib.make_mesh(device=device), checkpoint_dir=checkpoint_dir)
+
+
+def build_with_stub(build_dir: str, nvcc: str) -> str:
+    """`_build.build()` into `build_dir` with `nvcc` as the compiler, once
+    every rank is ready (so that the ranks' builds start together)."""
+    from pathlib import Path
+
+    from maveric_slam_tpu_torch.ops.kernels import _build
+
+    _build.BUILD_DIR = Path(build_dir)
+    _build._nvcc = lambda: nvcc
+    dist.barrier()
+    return str(_build.build())
+
+
+def fail_on_rank(bad: int) -> int:
+    """Rank `bad` raises while every other rank waits in a collective."""
+    if dist.get_rank() == bad:
+        raise ValueError(f"rank {bad} fails on purpose")
+    dist.barrier()
+    return dist.get_rank()
+
+
+def diverge() -> None:
+    """Each rank holds other bytes: check_replicas must raise on every rank."""
+    mesh = mesh_lib.make_mesh(device="cpu")
+    mesh_lib.check_replicas(np.arange(8) + mesh.rank, mesh, "a test buffer")
+
+
+def engine_on_uneven_mesh(config) -> str:
+    """SlamSystem on a mesh whose size divides neither the LCD ring nor the
+    vocabulary: the ValueError's message (empty if it did not raise)."""
+    from maveric_slam_tpu_torch import slam as tslam
+    from maveric_slam_tpu_torch.models import superpoint as sp
+
+    try:
+        tslam.SlamSystem(sp.load_params(device="cpu"), config,
+                         mesh=mesh_lib.make_mesh(device="cpu"))
+    except ValueError as e:
+        return str(e)
+    return ""
