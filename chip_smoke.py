@@ -80,8 +80,31 @@ Phases, in order; any failure raises and exits non-zero:
      equal, [slam]'s BA-window count and loop pairs, [slam]'s bars, the
      trajectory against [slam]'s within MESH_SLAM_ALIGNED_BAR and
      MESH_SLAM_ATE_BAR; rank 0's frame
-     latency and rate; [mesh-nccl] the same components and engine on one
-     rank over NCCL, bitwise equal to the single-device port;
+     latency and rate; the mesh engine checkpoints after frame 180
+     (`checkpoint.save`, collective: the ring and pool gathered, rank 0
+     writes); [mesh-resume] a fresh group of 4 ranks restores it and runs
+     frames 181-249 (all five loop closures): on every rank bitwise equal to
+     the unbroken rank in `checkpoint.engine_state`, its replica digest and
+     both trajectories; save, restore walls and bytes on disk; [mesh-nccl]
+     the same components and engine on one rank over NCCL, bitwise equal to
+     the single-device port, and in that rank [resume]'s single-engine
+     checkpoint restored into a fresh one-rank mesh engine over frames
+     181-249, bitwise equal to [slam];
+  5f. [mesh-elastic] `MeshElasticRunner` over 2 gloo ranks on the card, 16
+     orbit frames, loop closure on, BA every 4, a checkpoint every 4:
+     unbroken, then a crash injected in rank 1 before frame 7 (attempt 0)
+     and a hang in rank 0 at frame 10 (attempt 1) under a deadline set from
+     the unbroken steps: exactly two restarts of the whole group and a
+     trajectory bitwise equal to the unbroken run's; each recovery's spawn,
+     engine, restore and replay wall; [surface] `polar_decomposition`,
+     `decompose_essential` and `recover_pose` on the pairwise path's 256
+     essential matrices (one svd3 launch each): polar against the CPU at
+     the svd3 bars, the decomposition on what E's conditioning does not
+     move and against numpy's float64 one where t is well determined,
+     recover_pose's choice against a float64 count of its candidates'
+     votes up to f32 rounding's reach; and `superpoint_float` at (1, 192,
+     640), TF32 off, its error against the CPU's float64 at most twice the
+     CPU's f32 error;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -107,6 +130,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import subprocess
@@ -203,6 +227,13 @@ MESH_POOL_FRAMES = 20
 # within twice the mesh's measured 1.158 m, and its ATE within twice the
 # reordered runs' largest ATE change (0.0449 m) of [slam]'s.
 MESH_SLAM_ALIGNED_BAR, MESH_SLAM_ATE_BAR = 2.32, 0.0898
+# [mesh-elastic]: 2 gloo ranks on the card over [elastic]'s orbit frames
+# extended to 16 (loop closure on, BA every 4: windows at 4, 8 and 12), a
+# checkpoint every 4; a crash in rank 1 before frame 7 in the first
+# attempt, a hang in rank 0 at frame 10 in the second.
+MESH_ELASTIC_RANKS, MESH_ELASTIC_FRAMES, MESH_ELASTIC_EVERY = 2, 16, 4
+MESH_ELASTIC_FAULTS = (("crash", 0, 1, 7), ("hang", 1, 0, 10))
+SURFACE_GAP = 1e-2  # [surface]: (s1 - |s2|) / s0 below this leaves t, and so the pair, ill-determined
 
 
 def _log(*a):
@@ -920,7 +951,8 @@ def phase_pairwise(frames, poses, cfg):
     idx = st.top_k(torch.where(g["mask"].to(cuda), 0.0, -torch.inf) + gmin, 8)[1]
     A = epipolar.eight_point_design(p1[idx], p2[idx])
     ata = A.transpose(-1, -2) @ A
-    return per_call, {"ata": ata, "E": nullspace.nullspace_plain(ata).reshape(-1, 3, 3)}, call
+    return per_call, {"ata": ata, "E": nullspace.nullspace_plain(ata).reshape(-1, 3, 3), "p1": p1,
+                      "p2": p2, "mask": g["mask"].to(cuda)}, call
 
 
 def check_pairwise_kernels(pw_inp):
@@ -1382,9 +1414,7 @@ def phase_resume(cfg, run):
     of the run) with the same noise: bitwise equal to the unbroken engine in
     everything the checkpoint holds (tracker state and generators, poses,
     tracks, the LCD database, the pool, keyframes, loop edges, stats, loop
-    events) and in both trajectories."""
-    import shutil
-
+    events) and in both trajectories. The checkpoint stays for [mesh-resume]."""
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.ops import kernels
     from maveric_slam_tpu_torch.slam import SlamSystem
@@ -1400,7 +1430,6 @@ def phase_resume(cfg, run):
     checkpoint.restore(slam, path)
     torch.cuda.synchronize()
     restore_s = time.perf_counter() - t0
-    shutil.rmtree(path)
     restored_verifications = slam.verifications
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
@@ -1710,17 +1739,39 @@ def _mesh_components(mesh, cfg, comp):
     return out
 
 
-def _mesh_engine(mesh, cfg, renders, idx, noises):
+def fingerprint(arrays):
+    """{key: (dtype, shape, sha256 of the bytes)} of a checkpoint state:
+    equal for bitwise-equal arrays, and small enough to send from a rank."""
+    return {k: (str(a.dtype), a.shape, hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
+            for k, a in arrays.items()}
+
+
+def _engine_record(slam):
+    """What the resume phases compare of an engine: the fingerprint of
+    `checkpoint.engine_state` (collective in mesh mode) and its meta,
+    `checkpoint.replica_digest`, both trajectories and the loop events."""
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    state, meta = checkpoint.engine_state(slam)
+    return {"state": fingerprint(state), "meta": meta, "digest": checkpoint.replica_digest(slam),
+            "trajectory": slam.trajectory(), "odometry": slam.odometry_trajectory(),
+            "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events]}
+
+
+def _mesh_engine(mesh, cfg, renders, idx, noises, ckpt=None):
     """The mesh-mode SlamSystem on this rank over [slam]'s frames and noise
     (loop closure on, BA every SLAM_BA_EVERY, fetch_delay 0); launch counts
     set to 0 just before its first frame and read after `finish`. Walls
     (host clock, synchronised): each frame, each sharded BA call and each
-    sharded LCD query inside it."""
+    sharded LCD query inside it. With `ckpt`, a collective
+    `checkpoint.save` there after frame SLAM_SAVE_AT, outside the frame's
+    wall (its wall: the gather, and on rank 0 the write)."""
     from maveric_slam_tpu_torch.loopclosure import sharded_lcd
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.ops import kernels
     from maveric_slam_tpu_torch.parallel import sharded_ba
     from maveric_slam_tpu_torch.slam import SlamSystem
+    from maveric_slam_tpu_torch.utils import checkpoint
 
     spans = {"ba": [], "query": []}
 
@@ -1735,30 +1786,67 @@ def _mesh_engine(mesh, cfg, renders, idx, noises):
             sink.append(time.perf_counter() - t0)
             return res
         setattr(mod, name, run)
+        return fn
 
-    timed(sharded_ba, "sharded_bundle_adjust", spans["ba"])
-    timed(sharded_lcd, "sharded_query", spans["query"])
+    saved = [(sharded_ba, "sharded_bundle_adjust", timed(sharded_ba, "sharded_bundle_adjust", spans["ba"])),
+             (sharded_lcd, "sharded_query", timed(sharded_lcd, "sharded_query", spans["query"]))]
     slam = SlamSystem(sp.load_params(device=mesh.device), cfg, ba_every=SLAM_BA_EVERY,
                       enable_loop_closure=True, fetch_delay=0, mesh=mesh)
     _sync()
     kernels.reset_launch_counts()
-    walls = []
+    walls, save_s = [], None
     for j, k in enumerate(idx):
         _sync()
         t0 = time.perf_counter()
         slam.process(renders[k], *(() if j == 0 else noises[j - 1]))
         _sync()
         walls.append(time.perf_counter() - t0)
+        if ckpt is not None and j == SLAM_SAVE_AT:
+            t0 = time.perf_counter()
+            checkpoint.save(slam, ckpt)
+            save_s = time.perf_counter() - t0
     slam.finish()
+    launches = kernels.launch_counts()
+    for mod, name, fn in saved:
+        setattr(mod, name, fn)
     return {"poses": np.stack(slam.poses), "rel": slam.rel_poses, "stats": slam.stats,
-            "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events],
             "kf_frames": slam.kf_frames, "verifications": slam.verifications,
-            "launches": kernels.launch_counts(), "walls": walls, "ba_walls": spans["ba"],
-            "query_walls": spans["query"], "odometry": slam.odometry_trajectory()}
+            "launches": launches, "walls": walls, "ba_walls": spans["ba"],
+            "query_walls": spans["query"], "save_s": save_s, **_engine_record(slam)}
 
 
-def _mesh_rank(cfg, comp, scene):
-    """One rank of a mesh phase on the card: the components, then the engine."""
+def _mesh_resumed(mesh, cfg, renders, idx, noises, path):
+    """A fresh mesh engine on this rank restored from the checkpoint at
+    `path` (taken after frame SLAM_SAVE_AT), over the frames after it with
+    [slam]'s noise; launch counts set to 0 just after the restore."""
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.slam import SlamSystem
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    slam = SlamSystem(sp.load_params(device=mesh.device), cfg, ba_every=SLAM_BA_EVERY,
+                      enable_loop_closure=True, fetch_delay=0, mesh=mesh)
+    _sync()
+    t0 = time.perf_counter()
+    checkpoint.restore(slam, path)
+    _sync()
+    restore_s = time.perf_counter() - t0
+    restored_verifications = slam.verifications
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    for j in range(SLAM_SAVE_AT + 1, len(idx)):
+        slam.process(renders[idx[j]], *noises[j - 1])
+    slam.finish()
+    _sync()
+    return {"restore_s": restore_s, "run_s": time.perf_counter() - t0,
+            "launches": kernels.launch_counts(), "frames": len(idx) - SLAM_SAVE_AT - 1,
+            "verifications": slam.verifications - restored_verifications, **_engine_record(slam)}
+
+
+def _mesh_rank(cfg, comp, scene, ckpt=None, resume=None):
+    """One rank of a mesh phase on the card: the components, then the engine
+    (saving into `ckpt` when given), then, with `resume`, a fresh engine
+    restored from that checkpoint over the frames after it."""
     from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
 
     out = {"t_enter": time.time()}  # the wall clock: comparable across the processes
@@ -1768,18 +1856,31 @@ def _mesh_rank(cfg, comp, scene):
     out["components"] = _mesh_components(mesh, cfg, comp)
     out["components_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    out["engine"] = _mesh_engine(mesh, cfg, *scene)
+    out["engine"] = _mesh_engine(mesh, cfg, *scene, ckpt=ckpt)
     out["engine_s"] = time.perf_counter() - t0
+    if resume is not None:
+        out["resumed"] = _mesh_resumed(mesh, cfg, *scene, resume)
     out["t_exit"] = time.time()
     return out
 
 
-def _spawn_mesh(label, world, cfg, comp, scene):
+def _mesh_resume_rank(cfg, scene, path):
+    """One rank of [mesh-resume]'s fresh group: the restored engine alone."""
+    from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+
+    t_enter = time.time()
+    mesh = mesh_lib.make_mesh()
+    return {"t_enter": t_enter, "rank": mesh.rank, "backend": mesh.backend,
+            **_mesh_resumed(mesh, cfg, *scene, path)}
+
+
+def _spawn_mesh(label, world, cfg, comp, scene, ckpt=None, resume=None):
     """`_mesh_rank` on `world` ranks; logs where the wall went."""
     from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
 
     t0 = time.time()
-    runs = mesh_lib.spawn(_mesh_rank, world, args=(cfg, comp, scene), timeout_s=MESH_TIMEOUT_S)
+    runs = mesh_lib.spawn(_mesh_rank, world, args=(cfg, comp, scene, ckpt, resume),
+                          timeout_s=MESH_TIMEOUT_S)
     t1, r0 = time.time(), runs[0]
     _log(f"[{label}] {world} rank(s) over {r0['backend']} on {r0['device']}: {t1 - t0:.1f} s from "
          f"spawn to the last result: rank 0 began {r0['t_enter'] - t0:.1f} s after the spawn "
@@ -2011,26 +2112,179 @@ def check_mesh_engine(label, runs, slam_run, cfg, gt, bitwise):
 
 def phase_mesh(cfg, streams, noises_b, slam_run, renders):
     """[mesh] and [mesh-slam]: MESH_RANKS gloo ranks sharing the card run
-    the components, then the mesh engine over [slam]'s scene."""
+    the components, then the mesh engine over [slam]'s scene, which
+    checkpoints after frame SLAM_SAVE_AT for [mesh-resume]."""
+    import tempfile
+
     comp, scene = mesh_inputs(cfg, streams, noises_b, slam_run, renders)
     ref = _mesh_references(cfg, comp)
-    runs = _spawn_mesh("mesh", MESH_RANKS, cfg, comp, scene)
+    ckpt = tempfile.mkdtemp(prefix="chip_smoke_mesh_ckpt_")
+    runs = _spawn_mesh("mesh", MESH_RANKS, cfg, comp, scene, ckpt=ckpt)
     _require(all(r["backend"] == "gloo" for r in runs), "mesh: the shared card's ranks are not on gloo")
     check_mesh_components("mesh", runs, ref, bitwise=False)
-    return comp, scene, ref, runs
+    return comp, scene, ref, runs, ckpt
 
 
 def phase_mesh_slam(cfg, slam_run, runs):
     return check_mesh_engine("mesh-slam", runs, slam_run, cfg, slam_run["gt"], bitwise=False)
 
 
+def _record_differences(a, b):
+    """What differs between two `_engine_record`s (fingerprinted arrays,
+    meta fields, the replica digest, trajectories, loop events)."""
+    diff = [k for k in sorted(set(a["state"]) | set(b["state"])) if a["state"].get(k) != b["state"].get(k)]
+    diff += [f"meta {k}" for k in sorted(set(a["meta"]) | set(b["meta"]))
+             if a["meta"].get(k) != b["meta"].get(k)]
+    diff += [k for k in ("digest", "trajectory", "odometry") if not np.array_equal(a[k], b[k])]
+    return diff + (["loops"] if a["loops"] != b["loops"] else [])
+
+
+def _resume_launches(r):
+    n, v = r["frames"], r["verifications"]
+    return {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
+            "svd3": 3 * (n + v), "fused_stem": n}
+
+
+def phase_mesh_resume(cfg, scene, runs, ckpt):
+    """[mesh-resume]: [mesh-slam]'s checkpoint after frame SLAM_SAVE_AT
+    restored into a fresh group of MESH_RANKS gloo ranks, which runs the
+    frames after it (all five loop closures) with the same noise: on every
+    rank bitwise equal to the unbroken [mesh-slam] rank in everything
+    `checkpoint.engine_state` holds (the gathered ring and pool included),
+    its replica digest and both trajectories."""
+    import shutil
+
+    from maveric_slam_tpu_torch.parallel import mesh as mesh_lib
+
+    size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    t0 = time.time()
+    resumed = mesh_lib.spawn(_mesh_resume_rank, MESH_RANKS, args=(cfg, scene, ckpt),
+                             timeout_s=MESH_TIMEOUT_S)
+    wall = time.time() - t0
+    shutil.rmtree(ckpt)
+    failures = []
+    for r, u in zip(resumed, runs):
+        diff = _record_differences(u["engine"], r)
+        if diff:
+            failures.append(f"rank {r['rank']} differs from the unbroken run in {diff}")
+        if r["launches"] != _resume_launches(r):
+            failures.append(f"rank {r['rank']} launches {r['launches']}, expected {_resume_launches(r)}")
+    ev = [(f, m) for f, m, _, _ in resumed[0]["loops"] if f > SLAM_SAVE_AT]
+    saves = ", ".join(f"{1e3 * u['engine']['save_s']:.3f}" for u in runs)
+    restores = ", ".join(f"{1e3 * r['restore_s']:.3f}" for r in resumed)
+    _log(f"[mesh-resume] {MESH_RANKS} gloo ranks: checkpoint after frame {SLAM_SAVE_AT}, {size} bytes "
+         f"on disk; save (gather + rank 0's write) {saves} ms on ranks 0..; a fresh group "
+         f"{wall:.1f} s from spawn to the last result, rank 0 began "
+         f"{resumed[0]['t_enter'] - t0:.1f} s after the spawn; restore {restores} ms on ranks 0..; frames "
+         f"{SLAM_SAVE_AT + 1}-{SLAM_FRAMES - 1} in {resumed[0]['run_s']:.3f} s on rank 0, loop "
+         f"closures there {ev}; kernels on rank 0 {json.dumps(resumed[0]['launches'])}")
+    _log(f"[mesh-resume] against the unbroken [mesh-slam] ranks: "
+         f"{'bitwise equal on every rank' if not failures else '; '.join(failures)}")
+    _require(len(ev) == 5, f"mesh-resume: loop closures after the checkpoint {ev}")
+    _require(not failures, "mesh-resume: " + "; ".join(failures))
+
+
 def phase_mesh_nccl(cfg, slam_run, comp, scene, ref):
     """[mesh-nccl]: one rank over NCCL, the same components and the mesh
-    engine over [slam]'s scene; bitwise equal to the single-device port."""
-    runs = _spawn_mesh("mesh-nccl", 1, cfg, comp, scene)
+    engine over [slam]'s scene; bitwise equal to the single-device port.
+    Then, in that rank, [resume]'s single-engine checkpoint restored into a
+    fresh one-rank mesh engine over the frames after it: bitwise equal to
+    the unbroken [slam] engine ([mesh-resume])."""
+    import shutil
+
+    from maveric_slam_tpu_torch.utils import checkpoint
+
+    runs = _spawn_mesh("mesh-nccl", 1, cfg, comp, scene, resume=slam_run["ckpt"])
+    shutil.rmtree(slam_run["ckpt"])
     _require(runs[0]["backend"] == "nccl", f"mesh-nccl: backend {runs[0]['backend']}")
     check_mesh_components("mesh-nccl", runs, ref, bitwise=True)
-    return check_mesh_engine("mesh-nccl", runs, slam_run, cfg, slam_run["gt"], bitwise=True)
+    engine = check_mesh_engine("mesh-nccl", runs, slam_run, cfg, slam_run["gt"], bitwise=True)
+    single = slam_run["slam"]
+    state, meta = checkpoint.engine_state(single)
+    want = {"state": fingerprint(state), "meta": meta, "digest": checkpoint.replica_digest(single),
+            "trajectory": single.trajectory(), "odometry": single.odometry_trajectory(),
+            "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in single.loop_events]}
+    r = runs[0]["resumed"]
+    diff = _record_differences(want, r)
+    _log(f"[mesh-resume] [resume]'s single-engine checkpoint restored into the one NCCL rank: restore "
+         f"{1e3 * r['restore_s']:.3f} ms, frames {SLAM_SAVE_AT + 1}-{SLAM_FRAMES - 1} in "
+         f"{r['run_s']:.3f} s, kernels {json.dumps(r['launches'])}; against the unbroken [slam] engine: "
+         f"{'bitwise equal' if not diff else 'DIFFERS in ' + ', '.join(diff)}")
+    _require(r["launches"] == _resume_launches(r), f"mesh-resume (nccl) launches {r['launches']}")
+    _require(not diff, f"mesh-resume (nccl): differs from [slam] in {diff}")
+    return engine
+
+
+class ElasticFault:
+    """[mesh-elastic]'s fault hook (picklable for the ranks): each fault
+    (kind, attempt, rank, frame) fires on that rank before that frame's
+    step in that attempt; "crash" raises, "hang" sleeps past any deadline."""
+
+    def __init__(self, faults):
+        self.faults = faults
+
+    def __call__(self, attempt, rank, frame, system):
+        for kind, a, r, f in self.faults:
+            if (a, r, f) == (attempt, rank, frame):
+                if kind == "crash":
+                    raise RuntimeError("injected device fault")
+                time.sleep(3600.0)
+
+
+def phase_mesh_elastic(cfg, frames):
+    """[mesh-elastic]: `MeshElasticRunner` over MESH_ELASTIC_RANKS gloo
+    ranks on the card and MESH_ELASTIC_FRAMES orbit frames (loop closure
+    on, BA every SLAM_BA_EVERY, a collective checkpoint every
+    MESH_ELASTIC_EVERY): unbroken, then one run with MESH_ELASTIC_FAULTS,
+    the hang under a deadline set from the unbroken run's steps: exactly
+    two restarts of the whole group and a trajectory bitwise equal to the
+    unbroken run's. Prints each recovery's wall: spawn, engine, restore
+    and the replay up to the failed frame."""
+    from maveric_slam_tpu_torch.utils import elastic
+
+    seq = frames[:MESH_ELASTIC_FRAMES]
+    kw = dict(checkpoint_every=MESH_ELASTIC_EVERY, device="cuda", attempt_timeout_s=MESH_TIMEOUT_S,
+              ba_every=SLAM_BA_EVERY, enable_loop_closure=True)
+    t0 = time.time()
+    runner = elastic.MeshElasticRunner(MESH_ELASTIC_RANKS, cfg, **kw)
+    want = runner.run(seq)
+    unbroken_s = time.time() - t0
+    (a0,) = runner.attempts
+    runner.close()
+    _require(runner.restarts == 0, f"mesh-elastic: the unbroken run restarted {runner.failures}")
+    steps = a0["steps"]
+    deadline = max(3.0, 4 * max(steps.values()))
+    t0 = time.time()
+    runner = elastic.MeshElasticRunner(MESH_ELASTIC_RANKS, cfg, step_timeout_s=deadline,
+                                       fault_hook=ElasticFault(MESH_ELASTIC_FAULTS), **kw)
+    got = runner.run(seq)
+    faulted_s = time.time() - t0
+    runner.close()
+    _log(f"[mesh-elastic] {MESH_ELASTIC_RANKS} gloo ranks, {MESH_ELASTIC_FRAMES} frames at {H}x{W}, a "
+         f"checkpoint every {MESH_ELASTIC_EVERY}: unbroken {unbroken_s:.1f} s (spawn to rank 0's start "
+         f"{a0['spawn_s']:.1f} s, engine {a0['build_s']:.1f} s), steps median "
+         f"{1e3 * np.median(list(steps.values())):.3f} ms, max {1e3 * max(steps.values()):.3f} ms, "
+         f"collective saves {[round(1e3 * v, 1) for v in a0['saves'].values()]} ms; hang "
+         f"deadline {deadline:.3f} s; faulted run {faulted_s:.1f} s, restarts {runner.restarts}, "
+         f"failures {runner.failures}")
+    for prev, a in zip(runner.attempts, runner.attempts[1:]):
+        replay = [f for f in a["steps"] if f < prev["failed_at"]]
+        _log(f"[mesh-elastic] recovery from the failure at frame {prev['failed_at']} (attempt "
+             f"{a['attempt']}): spawn to rank 0's start {a['spawn_s']:.3f} s, engine "
+             f"{a['build_s']:.3f} s, restore of frame {a['resumed_at']} {1e3 * a['restore_s']:.3f} ms, "
+             f"replay of frames {replay} {1e3 * sum(a['steps'][f] for f in replay):.3f} ms")
+    same = {k: np.array_equal(getattr(got, k), getattr(want, k)) for k in ("trajectory", "odometry")}
+    _log(f"[mesh-elastic] against the unbroken run: trajectory bitwise {same['trajectory']}, odometry "
+         f"bitwise {same['odometry']}, stats equal {got.stats == want.stats}, keyframes "
+         f"{got.kf_frames}")
+    checks = [
+        (runner.restarts == 2, f"restarts {runner.restarts}"),
+        (runner.failures[0].startswith("frame 7: rank 1:") and "injected" in runner.failures[0]
+         and runner.failures[1].startswith("frame 10:") and "exceeded" in runner.failures[1],
+         f"failures {runner.failures}"),
+        (all(same.values()) and got.stats == want.stats, "the recovered run differs from the unbroken"),
+    ]
+    _require(all(ok for ok, _ in checks), "mesh-elastic: " + "; ".join(w for ok, w in checks if not ok))
 
 
 def phase_profile_slam(cfg, run, warm=8, frames=8):
@@ -2445,6 +2699,205 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     phase_profile_slam(cfg, slam_run)
 
 
+
+
+def decomposition_reference(E):
+    """numpy float64, independent of the port: E's singular values and its
+    decomposition (R1, R2, t) = (U W V^T, U W^T V^T, U[:, 2]) with U and V
+    turned into proper rotations."""
+    U, s, Vt = np.linalg.svd(E.astype(np.float64))
+    V = np.swapaxes(Vt, -1, -2)
+    for M in (U, V):
+        M[np.linalg.det(M) < 0, :, 2] *= -1
+    W = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+    Vt = np.swapaxes(V, -1, -2)
+    return s, U @ W @ Vt, U @ W.T @ Vt, U[..., 2]
+
+
+def check_decomposition(E, dec, ref):
+    """The largest faults of a decomposition (R1, R2, t) of each of E's
+    matrices, none of them moved by E's conditioning: |R^T R - I| and
+    |det R - 1| of both rotations, ||t| - 1|, R1 R2^T against the half turn
+    about t (2 t t^T - I), and how far [t]x R2 falls short of E's best
+    essential fit, s0 + s1 - <E, [t]x R2> over max|E| (Ehat = U diag(1, 1,
+    0) V^T does not move when s0 and s1 meet). Where t is well determined
+    ((s1 - |s2|) / s0 >= SURFACE_GAP), the pair (in either order) and t (up
+    to sign) against the float64 reference."""
+    from maveric_slam_tpu_torch.ops.lie import hat
+
+    s, R1r, R2r, tr = ref
+    R1, R2, t = (x.double() for x in dec)
+    Ed = E.double()
+    eye = torch.eye(3, dtype=torch.float64)
+    ortho = max(float((R.transpose(-1, -2) @ R - eye).abs().max()) for R in (R1, R2))
+    det = max(float((torch.linalg.det(R) - 1).abs().max()) for R in (R1, R2))
+    norm = float((t.norm(dim=-1) - 1).abs().max())
+    half = float((R1 @ R2.transpose(-1, -2) - (2 * t[..., :, None] * t[..., None, :] - eye)).abs().max())
+    fit = (torch.from_numpy(s[:, 0] + s[:, 1]) - (Ed * (hat(t) @ R2)).sum((-1, -2))) / float(Ed.abs().max())
+    well = torch.from_numpy((s[:, 1] - s[:, 2]) / s[:, 0] >= SURFACE_GAP)
+    R1r, R2r, tr = (torch.from_numpy(x) for x in (R1r, R2r, tr))
+    same = torch.maximum((R1 - R1r).abs().amax((-1, -2)), (R2 - R2r).abs().amax((-1, -2)))
+    swapped = torch.maximum((R1 - R2r).abs().amax((-1, -2)), (R2 - R1r).abs().amax((-1, -2)))
+    pair = torch.minimum(same, swapped)[well]
+    tgap = torch.minimum((t - tr).abs().amax(-1), (t + tr).abs().amax(-1))[well]
+    return {"ortho": ortho, "det": det, "|t|": norm, "half turn": half, "fit": float(fit.max()),
+            "well determined": int(well.sum()), "pair": float(pair.max()), "t": float(tgap.max())}
+
+
+def votes_in_reach(R, t, p1, p2, w, safety=2.0):
+    """The cheirality vote of `choose_pose_by_cheirality` for candidates
+    (R, t) (..., 3, 3), (..., 3) and points p1, p2 (M, 2), weights w (M,):
+    the midpoint triangulation's depths in both cameras, written out here in
+    float64 on the CPU. Returns the votes (..., M) and the votes an f32
+    evaluation of the same formulas, in any summation order, can flip: a
+    depth within `safety` times its first-order f32 rounding bound of 0
+    (each product, sum of 3 and difference of products carrying its
+    inputs' bounds and its own rounding)."""
+    eps = 2.0 ** -24
+    R, t, p1, p2, w = (x.double() for x in (R, t, p1, p2, w))
+    a = torch.cat([p1, torch.ones_like(p1[:, :1])], -1).expand(*R.shape[:-2], -1, -1)
+    d2 = torch.cat([p2, torch.ones_like(p2[:, :1])], -1)
+    Rt = R.transpose(-1, -2)[..., None, :, :]
+    b, eb = (Rt @ d2[..., None])[..., 0], 3 * eps * (Rt.abs() @ d2.abs()[..., None])[..., 0]
+    c2 = -(Rt @ t[..., None, :, None])[..., 0]
+    ec = 3 * eps * (Rt.abs() @ t.abs()[..., None, :, None])[..., 0]
+
+    def dot(x, ex, y, ey):
+        return ((x * y).sum(-1), 3 * eps * (x * y).abs().sum(-1) + (ex * y.abs()).sum(-1)
+                + (x.abs() * ey).sum(-1))
+
+    def diff(x, y, p, q):  # x y - p q, each a (value, bound) pair
+        (x, ex), (y, ey), (p, ep), (q, eq) = x, y, p, q
+        return (x * y - p * q, ex * y.abs() + x.abs() * ey + ep * q.abs() + p.abs() * eq
+                + 2 * eps * ((x * y).abs() + (p * q).abs()))
+
+    zero = torch.zeros_like(a)
+    aa, bb, ab = dot(a, zero, a, zero), dot(b, eb, b, eb), dot(a, zero, b, eb)
+    ac, bc = dot(a, zero, c2, ec), dot(b, eb, c2, ec)
+    (den, eden), (ns, ens), (nu, enu) = diff(aa, bb, ab, ab), diff(ac, bb, bc, ab), diff(ac, ab, bc, aa)
+    s, u = ns / den, nu / den
+    es = (ens + s.abs() * eden) / den.abs() + eps * s.abs()
+    eu = (enu + u.abs() * eden) / den.abs() + eps * u.abs()
+    X = 0.5 * (s[..., None] * a + c2 + u[..., None] * b)
+    eX = (0.5 * (es[..., None] * a.abs() + ec + eu[..., None] * b.abs() + u.abs()[..., None] * eb)
+          + 2 * eps * ((s[..., None] * a).abs() + c2.abs() + (u[..., None] * b).abs()))
+    RX = R[..., None, 2, :] * X
+    z1, ez1 = X[..., 2], safety * eX[..., 2]
+    z2 = RX.sum(-1) + t[..., None, 2]
+    ez2 = safety * ((R[..., None, 2, :].abs() * eX).sum(-1)
+                    + 4 * eps * (RX.abs().sum(-1) + t[..., None, 2].abs()))
+    votes = (z1 > 0) & (z2 > 0) & (w > 0)
+    reach = ((z1.abs() <= ez1) & (z2 > -ez2) | (z2.abs() <= ez2) & (z1 > -ez1)) & (w > 0)
+    return votes, reach
+
+
+def check_recover_pose(dec, rec, p1, p2, w):
+    """recover_pose's choice against one counting function
+    (`votes_in_reach`) applied to the same decomposition's four candidates.
+    Per matrix: the chosen (R, t) is one of the four bitwise; its count lies
+    between its sure votes and its sure or reachable ones; and those reach
+    the largest count of sure votes among the four. Returns the number of
+    matrices outside each, and the reachable votes."""
+    R1, R2, t = dec
+    Rc, tc, n = rec
+    cands_R, cands_t = torch.stack([R1, R1, R2, R2]), torch.stack([t, -t, t, -t])
+    votes, reach = votes_in_reach(cands_R, cands_t, p1, p2, w)
+    sure, maybe = (votes & ~reach).sum(-1), (votes | reach).sum(-1)  # (4, B)
+    hit = (cands_R == Rc).flatten(-2).all(-1) & (cands_t == tc).all(-1)
+    k = torch.argmax(hit.int(), 0)
+    lo, hi = sure.gather(0, k[None])[0], maybe.gather(0, k[None])[0]
+    return {"not a candidate": int((~hit.any(0)).sum()),
+            "count outside its votes": int(((n < lo) | (n > hi)).sum()),
+            "not the most votes": int((hi < sure.amax(0)).sum()),
+            "reachable votes": int(reach.sum())}
+
+
+def phase_surface(cfg, frames, pw_inp):
+    """[surface]: the JAX package's library surface on the card.
+    `polar_decomposition`, `decompose_essential` and `recover_pose` on the
+    pairwise path's 256 essential matrices (its matched points, M = 1000,
+    for the cheirality vote), launch counts set to 0 just before: one svd3
+    launch each and no other kernel. Polar: R P reconstructs E within 1e-3
+    max|E|, det R within 1e-3 of 1, P within 1e-3 max|E| of the CPU's. The
+    decomposition (`check_decomposition`): rotations, |t|, the half turn
+    and the essential fit within 1e-3 on every matrix, and the pair and t
+    within 1e-3 of numpy's float64 decomposition where t is well
+    determined. recover_pose (`check_recover_pose`): a candidate of the
+    card's decomposition with the most votes by one float64 count, up to
+    votes within f32 rounding's reach. `superpoint_float` at (1, H, W) with
+    TF32 off: the card's largest error against the network in float64 on
+    the CPU at most twice the CPU's f32 error (the planned rtol 1e-5 / atol
+    1e-5 does not hold between two f32 summation orders: ROADMAP Faults
+    (q))."""
+    from maveric_slam_tpu_torch.geometry import epipolar
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels, svd3 as svd3_ops
+
+    E, p1, p2, w = pw_inp["E"], pw_inp["p1"], pw_inp["p2"], pw_inp["mask"].float()
+    _sync()
+    kernels.reset_launch_counts()
+    card = {"polar": svd3_ops.polar_decomposition(E), "decompose": epipolar.decompose_essential(E),
+            "recover": epipolar.recover_pose(E, p1, p2, w)}
+    _sync()
+    launches = kernels.launch_counts()
+    card = {k: [x.cpu() for x in v] for k, v in card.items()}
+    Ec = E.cpu()
+    m = float(Ec.abs().max())
+    (R, P), Pc = card["polar"], svd3_ops.polar_decomposition(Ec)[1]
+    recon = float((R @ P - Ec).abs().max())
+    det = float((torch.linalg.det(R) - 1).abs().max())
+    dP = float((P - Pc).abs().max())
+    ref = decomposition_reference(Ec.numpy())
+    dec = check_decomposition(Ec, card["decompose"], ref)
+    rec = check_recover_pose(card["decompose"], card["recover"], p1.cpu(), p2.cpu(), w.cpu())
+    _log(f"[surface] on the pairwise path's {tuple(E.shape)} essential matrices (max |E| {m:.3g}) and "
+         f"its {int(w.sum())} matches: kernels {json.dumps(launches)}; polar: recon {recon:.3g}, "
+         f"|det R - 1| {det:.3g}, P card-CPU {dP:.3g}; decompose_essential (bars 1e-3; pair and t "
+         f"on the matrices with (s1 - |s2|) / s0 >= {SURFACE_GAP}): {json.dumps(dec)}; recover_pose: "
+         f"{json.dumps(rec)}; counts median {float(card['recover'][2].float().median()):.0f}")
+    expected = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 0, "svd3": 3,
+                "fused_stem": 0}
+    bars = ("ortho", "det", "|t|", "half turn", "fit", "pair", "t")
+    checks = [
+        (launches == expected, f"launches {launches}, expected {expected}"),
+        (recon <= 1e-3 * m and det <= 1e-3 and dP <= 1e-3 * m, f"polar {recon} {det} {dP}"),
+        (all(dec[k] <= 1e-3 for k in bars), f"decompose_essential {dec}"),
+        (not any(v for k, v in rec.items() if k != "reachable votes"), f"recover_pose {rec}"),
+    ]
+
+    torch.cuda.synchronize()
+    _require(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32,
+             "surface: TF32 is on")
+    img = torch.from_numpy(np.stack([frames[0]]))
+    cpu = torch.device("cpu")
+    runs = {"card": (torch.device("cuda"), torch.float32), "cpu": (cpu, torch.float32),
+            "f64": (cpu, torch.float64)}
+    out = {}
+    for name, (dev, dtype) in runs.items():
+        params = sp.load_params(device=dev)
+        if dtype == torch.float64:
+            params = {k: v.double() if v.is_floating_point() else v for k, v in params.items()}
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out[name] = [x.cpu().double() for x in sp.superpoint_float(params, img.to(dev, dtype), dtype)]
+        if name == "card":
+            _sync()
+            float_s, float_launches = time.perf_counter() - t0, kernels.launch_counts()
+    errs = []
+    for k, name in enumerate(("semi", "desc")):
+        g, c, x = (out[key][k] for key in ("card", "cpu", "f64"))
+        off = float(((g - c).abs() > 1e-5 + 1e-5 * c.abs()).float().mean())
+        errs.append((name, float((g - x).abs().max()), float((c - x).abs().max()), off,
+                     float((g - c).abs().max()), float(x.abs().max())))
+    _log(f"[surface] superpoint_float at (1, {H}, {W}) on the card in {1e3 * float_s:.3f} ms (first "
+         f"call), kernels {json.dumps(float_launches)}; " + "; ".join(
+             f"{n}: max |card - CPU f64| {ge:.3g}, |CPU - CPU f64| {ce:.3g}, card-CPU {d:.3g} (max |x| "
+             f"{mx:.3g}), {100 * off:.4f}% outside rtol 1e-5 / atol 1e-5" for n, ge, ce, off, d, mx in errs))
+    checks += [(all(ge <= 2 * ce for _, ge, ce, _, _, _ in errs), f"superpoint_float errors {errs}"),
+               (not any(float_launches.values()), f"superpoint_float launched {float_launches}")]
+    _require(all(ok for ok, _ in checks), "surface: " + "; ".join(w for ok, w in checks if not ok))
+
+
 def _phased(label, phase, *args):
     """Run one phase and log its wall time (the script's time budget)."""
     t0 = time.perf_counter()
@@ -2536,10 +2989,13 @@ def main():
     _phased("resume", phase_resume, cfg, slam_run)
     _phased("elastic", phase_elastic, cfg, frames)
     _phased("host-pool", phase_host_pool)
-    comp, scene, mesh_ref, mesh_runs = _phased("mesh", phase_mesh, cfg, streams, noises_b, slam_run,
-                                               renders)
+    comp, scene, mesh_ref, mesh_runs, mesh_ckpt = _phased("mesh", phase_mesh, cfg, streams, noises_b,
+                                                          slam_run, renders)
     mesh_engine = _phased("mesh-slam", phase_mesh_slam, cfg, slam_run, mesh_runs)
+    _phased("mesh-resume", phase_mesh_resume, cfg, scene, mesh_runs, mesh_ckpt)
     _phased("mesh-nccl", phase_mesh_nccl, cfg, slam_run, comp, scene, mesh_ref)
+    _phased("mesh-elastic", phase_mesh_elastic, cfg, frames)
+    _phased("surface", phase_surface, cfg, frames, pw_inp)
     single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
     batched_ms = float(np.median(b_times[1:]) * 1e3)
     _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")

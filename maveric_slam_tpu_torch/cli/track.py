@@ -22,8 +22,13 @@ word). Under torchrun with WORLD_SIZE = N this process is one rank
 (`torchrun --nproc-per-node N -m maveric_slam_tpu_torch.cli.track ...
 --mesh N`); otherwise it starts the N ranks itself. Each rank runs on its
 own card when there are enough (NCCL), else on the card they share, or on
-the CPU with --device cpu (gloo). Only rank 0 writes or prints results.
-A mesh run cannot be checkpointed yet.
+the CPU with --device cpu (gloo); ranks it starts itself share this
+process's torch threads. Only rank 0 writes or prints results.
+--checkpoint and --resume work with --mesh too: every rank takes part in
+each save (rank 0 writes the whole state, in the single engine's format)
+and every rank restores from the directory, which all ranks must be able
+to read; a checkpoint resumes on a mesh of any size that divides the LCD
+ring and the vocabulary, or on one device.
 """
 
 import argparse
@@ -56,8 +61,6 @@ def main(argv=None) -> None:
         help="run the engine over an N-rank mesh (window BA landmark-sharded, LCD frame-sharded, "
         "pool word-sharded); 0 = one device")
     args = parser.parse_args(argv)
-    if args.mesh and (args.checkpoint or args.resume):
-        parser.error("--checkpoint and --resume do not work with --mesh")
     if not args.mesh:
         _run(args)
         return
@@ -65,7 +68,11 @@ def main(argv=None) -> None:
 
     world = os.environ.get("WORLD_SIZE")
     if world is None:
-        mesh_lib.spawn(_run, args.mesh, args=(args,), device=args.device, timeout_s=None)
+        import torch
+
+        # The ranks share this process's torch threads (OMP_NUM_THREADS).
+        mesh_lib.spawn(_run, args.mesh, args=(args,), device=args.device, timeout_s=None,
+                       threads=max(1, torch.get_num_threads() // args.mesh))
         return
     if int(world) != args.mesh:
         parser.error(f"--mesh {args.mesh} under a launcher with WORLD_SIZE={world}")
@@ -110,7 +117,7 @@ def _run(args) -> None:
     if args.resume:
         checkpoint.restore(slam, args.resume)
         start = slam.frame_idx + 1
-        print(f"resumed at frame {start}")
+        say(f"resumed at frame {start}")
     n = len(seq) if args.max_frames is None else min(len(seq), args.max_frames)
     with slam:
         for i in range(start, n):
@@ -122,6 +129,8 @@ def _run(args) -> None:
                 say(f"frame {i}/{n}: matches={s['matches']} inliers={s['inliers']}"
                     f" scale={s['scale']:.3f}")
         poses = slam.trajectory()
+    if args.checkpoint:  # collective in mesh mode: every rank saves, rank 0 writes
+        checkpoint.save(slam, args.checkpoint)
     if not lead:
         return
     os.makedirs(args.out_dir, exist_ok=True)
@@ -131,7 +140,6 @@ def _run(args) -> None:
     if slam.loop_events:
         print(f"loop closures: {[(e.frame, e.matched_frame) for e in slam.loop_events]}")
     if args.checkpoint:
-        checkpoint.save(slam, args.checkpoint)
         print(f"checkpointed to {args.checkpoint}")
 
     gt = None

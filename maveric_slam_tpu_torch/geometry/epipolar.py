@@ -1,5 +1,5 @@
-"""Essential-matrix estimation and pose recovery, batched (port of the parts
-of maveric_slam_tpu/geometry/epipolar.py the tracking step uses).
+"""Essential-matrix estimation and pose recovery, batched (port of
+maveric_slam_tpu/geometry/epipolar.py).
 
 Points are in normalized camera coordinates (K^-1 applied); E satisfies
 p2^T E p1 = 0; the recovered (R, t) maps cam1 points to cam2: p2 ~ R p1 + t.
@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from ..ops.lie import hat
 from ..ops.linalg import apply_rows, smallest_eigvec_inverse_iteration
 from ..ops.svd3 import svd3
 
@@ -75,9 +76,20 @@ def sampson_distance(E: torch.Tensor, p1: torch.Tensor, p2: torch.Tensor) -> tor
     return num / torch.clamp(den, min=1e-12)
 
 
-def triangulate(R, t, p1, p2) -> torch.Tensor:
-    """Closed-form ray-midpoint triangulation for P1 = [I|0], P2 = [R|t];
-    R (..., 3, 3), t (..., 3), p1/p2 (..., M, 2) -> X (..., M, 3) in cam 1."""
+def triangulate(R, t, p1, p2, method: str = "midpoint") -> torch.Tensor:
+    """Two-view triangulation for P1 = [I|0], P2 = [R|t]; R (..., 3, 3),
+    t (..., 3), p1/p2 (..., M, 2) normalized -> X (..., M, 3) in cam 1.
+    method="midpoint": the closed-form ray midpoint; "dlt": the linear 4x4
+    system's nullspace by inverse iteration (the nullspace kernel on a
+    CUDA tensor)."""
+    if method == "midpoint":
+        return _triangulate_midpoint(R, t, p1, p2)
+    if method == "dlt":
+        return _triangulate_dlt(R, t, p1, p2)
+    raise ValueError(f"triangulate: method {method!r} is not 'midpoint' or 'dlt'")
+
+
+def _triangulate_midpoint(R, t, p1, p2) -> torch.Tensor:
     a = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
     d2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
     Rt = R.transpose(-1, -2)
@@ -95,13 +107,43 @@ def triangulate(R, t, p1, p2) -> torch.Tensor:
     return 0.5 * (s[..., None] * a + c2 + u[..., None] * b)
 
 
+def _triangulate_dlt(R, t, p1, p2) -> torch.Tensor:
+    P2 = torch.cat([R, t[..., :, None]], dim=-1)[..., None, :, :]  # (..., 1, 3, 4)
+    x1, y1 = p1[..., 0], p1[..., 1]
+    x2, y2 = p2[..., 0], p2[..., 1]
+    # P1's rows are [1,0,0,0], [0,1,0,0], [0,0,1,0].
+    zeros, ones = torch.zeros_like(x1), torch.ones_like(x1)
+    row_a = torch.stack([-ones, zeros, x1, zeros], dim=-1)  # x1 * r2 - r0
+    row_b = torch.stack([zeros, -ones, y1, zeros], dim=-1)  # y1 * r2 - r1
+    row_c = x2[..., None] * P2[..., 2, :] - P2[..., 0, :]
+    row_d = y2[..., None] * P2[..., 2, :] - P2[..., 1, :]
+    A = torch.stack(torch.broadcast_tensors(row_a, row_b, row_c, row_d), dim=-2)  # (..., M, 4, 4)
+    Xh = smallest_eigvec_inverse_iteration(A.transpose(-1, -2) @ A)
+    w = Xh[..., 3]
+    w = torch.where(torch.abs(w) < 1e-12, 1e-12, w)
+    return Xh[..., :3] / w[..., None]
+
+
+def _decompose(U, V):
+    """(R1, R2, t) = (U W V^T, U W^T V^T, U[:, 2])."""
+    Vt = V.transpose(-1, -2)
+    W = torch.tensor(_W, dtype=U.dtype, device=U.device)
+    return U @ W @ Vt, U @ W.T @ Vt, U[..., :, 2]
+
+
+def decompose_essential(E: torch.Tensor):
+    """E -> (R1, R2, t): the two rotation candidates (proper rotations, as
+    svd3's U and V are) and the unit translation, from one svd3 (the
+    kernel on a CUDA tensor)."""
+    U, _, V = svd3(E)
+    return _decompose(U, V)
+
+
 def project_and_decompose(E: torch.Tensor):
     """One svd3 shared by the rank-2 projection and the pose decomposition:
-    (E_proj, R1, R2, t) with R1 = U W V^T, R2 = U W^T V^T, t = U[:, 2]."""
+    (E_proj, R1, R2, t) as `decompose_essential`'s."""
     U, s, V = svd3(E)
-    Vt = V.transpose(-1, -2)
-    W = torch.tensor(_W, dtype=E.dtype, device=E.device)
-    return _rank2_projection(U, s, V), U @ W @ Vt, U @ W.T @ Vt, U[..., :, 2]
+    return (_rank2_projection(U, s, V), *_decompose(U, V))
 
 
 def choose_pose_by_cheirality(R1, R2, t, p1, p2, weights=None
@@ -122,3 +164,16 @@ def choose_pose_by_cheirality(R1, R2, t, p1, p2, weights=None
     t_best = torch.take_along_dim(cands_t, best[None, ..., None], dim=0)[0]
     n_good = torch.take_along_dim(counts, best[None, ...], dim=0)[0]
     return R, t_best, n_good
+
+
+def recover_pose(E: torch.Tensor, p1, p2, weights=None
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(R, t_unit, num_good): the candidate of `decompose_essential(E)` with
+    the most correspondences in front of both cameras (cv2.recoverPose's
+    rule); batched over E's leading dims."""
+    return choose_pose_by_cheirality(*decompose_essential(E), p1, p2, weights)
+
+
+def essential_from_pose(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """E = [t]_x R for p2 = R p1 + t."""
+    return hat(t) @ R

@@ -20,20 +20,13 @@ uint32 arithmetic, so they are held in int64 with the same values.
 
 from __future__ import annotations
 
-import os
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ..data import refdata
 from ..ops.backend import resolve_device
-
-# The reference's vocabulary header as the JAX package caches it, read by
-# path (not imported): its arrays are the header's, untransformed.
-DEFAULT_VOCABULARY = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
-    "maveric_slam_tpu", "data", "_refcache", "include_data_LCD_vocabulary.h.npz",
-)
 
 
 class Vocabulary(NamedTuple):
@@ -57,22 +50,24 @@ def _unpack_pm1(leaf_words: np.ndarray) -> np.ndarray:
 
 
 def load_reference_vocabulary(path: str | None = None, device=None) -> Vocabulary:
-    """The reference's vocabulary on `device` (None: CUDA). The header
-    stores the base descriptors as [256][B] and the leaf words as int."""
+    """The reference's vocabulary on `device` (None: CUDA), through
+    `data.refdata.vocabulary()` (the shipped header cache), or from the
+    cached header npz at `path`."""
     dev = resolve_device(device)
-    with np.load(path or DEFAULT_VOCABULARY) as z:
-        leaves = z["leaf_descriptors"].astype(np.int64).astype(np.uint32)
-        base = np.ascontiguousarray(z["base_descriptors"].astype(np.int8).T)
-        scale, bias = z["scale_arr"].astype(np.float32), z["bias_arr"].astype(np.float32)
-        b, w = int(z["num_base_nodes"]), int(z["words_per_base_node"])
+    if path is None:
+        d = refdata.vocabulary()
+    else:
+        with np.load(path) as z:
+            d = refdata.vocabulary_arrays(z)
+    leaves = d["leaf_descriptors"]
     return Vocabulary(
-        base_descriptors=torch.from_numpy(base).to(dev),
-        scale=torch.from_numpy(scale).to(dev),
-        bias=torch.from_numpy(bias).to(dev),
+        base_descriptors=torch.from_numpy(d["base_descriptors"]).to(dev),
+        scale=torch.from_numpy(d["scale"]).to(dev),
+        bias=torch.from_numpy(d["bias"]).to(dev),
         leaf_words=torch.from_numpy(leaves.astype(np.int64)).to(dev),
         leaf_bits=torch.from_numpy(np.ascontiguousarray(_unpack_pm1(leaves))).to(dev),
-        num_base_nodes=b,
-        words_per_base_node=w,
+        num_base_nodes=d["num_base_nodes"],
+        words_per_base_node=d["words_per_base_node"],
     )
 
 

@@ -1,4 +1,5 @@
-"""int8 SuperPoint (port of the int8 path of maveric_slam_tpu/models/superpoint.py).
+"""SuperPoint (port of maveric_slam_tpu/models/superpoint.py): the int8
+path the engine runs, and the float path.
 
 The network is the reference's per-tensor qint8 graph (all zero points 0):
 int8 activations times int8 weights, summed, plus the int32-quantized bias,
@@ -17,6 +18,12 @@ CPU tests hold it bitwise against the JAX package.
 Stage 1 (conv1a, conv1b, 2x2 pool) runs by default as the fused stem
 kernel (`ops/kernels/stem.py`, CUDA `csrc/stem.cu`; its plain version, the
 layered stage 1, on the CPU), bitwise equal to the layered path.
+
+The float path (`superpoint_float`, the dequantized weights `{name}_wf`) is
+`lax.conv` outside any Pallas kernel in the JAX package; here it is the
+same im2col + matrix product in f32 with TF32 off, so that the card and
+the CPU differ only in the order of the products' sums (a cuDNN
+convolution may pick a Winograd or FFT algorithm).
 """
 
 from __future__ import annotations
@@ -48,12 +55,18 @@ def _scalar(v, device) -> torch.Tensor:
     return torch.tensor(np.float32(v), dtype=torch.float32, device=device)
 
 
-def _layer_params(name: str, w_oihw: np.ndarray, bias, wscale, oscale, device) -> Params:
+def _layer_params(name: str, w_oihw: np.ndarray, bias, wscale, oscale, device,
+                  wf_oihw=None) -> Params:
     w = np.asarray(w_oihw, np.int8)
+    if wf_oihw is None:  # the JAX package's dequantization, in numpy
+        wf_oihw = w.astype(np.float32) * wscale
     return {
         f"{name}_w": torch.from_numpy(w.copy()).to(device),  # (O, I, KH, KW) int8
         # f32 carrier of the int8 weight as an im2col matrix (O, I*KH*KW).
         f"{name}_wq": torch.from_numpy(w.reshape(w.shape[0], -1).astype(np.float32)).to(device),
+        # The dequantized f32 weight as an im2col matrix (the float path).
+        f"{name}_wf": torch.from_numpy(np.asarray(wf_oihw, np.float32).reshape(w.shape[0], -1)
+                                       .copy()).to(device),
         f"{name}_b": torch.from_numpy(np.asarray(bias, np.float32).copy()).to(device),
         f"{name}_wscale": _scalar(wscale, device),
         f"{name}_oscale": _scalar(oscale, device),
@@ -98,15 +111,18 @@ def load_params(path: str | None = None, device=None) -> Params:
 
 def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
     """The port's params from the JAX package's `load_params()` dict, its
-    arrays taken to numpy (HWIO int8 weights `{name}_w`, `{name}_b`,
-    `{name}_wscale`, `{name}_oscale`, `input_scale`)."""
+    arrays taken to numpy (HWIO int8 weights `{name}_w`, HWIO f32 weights
+    `{name}_wf` (dequantized here when absent), `{name}_b`, `{name}_wscale`,
+    `{name}_oscale`, `input_scale`)."""
     dev = resolve_device(device)
     params: Params = {"input_scale": _scalar(jax_params["input_scale"], dev)}
     for name in LAYERS:
         w_oihw = np.transpose(np.asarray(jax_params[f"{name}_w"]), (3, 2, 0, 1))
+        wf = jax_params.get(f"{name}_wf")
         params.update(_layer_params(name, w_oihw, jax_params[f"{name}_b"],
                                     jax_params[f"{name}_wscale"],
-                                    jax_params[f"{name}_oscale"], dev))
+                                    jax_params[f"{name}_oscale"], dev,
+                                    None if wf is None else np.transpose(np.asarray(wf), (3, 2, 0, 1))))
     return _with_stem(params)
 
 
@@ -120,14 +136,42 @@ def _requant(acc, in_scale, w_scale, bias, out_scale, relu: bool):
     return torch.clamp(q, 0.0 if relu else -128.0, 127.0)
 
 
-def _conv_acc(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
-    """Integer-exact conv accumulator of NCHW f32-carried int8 `x`: 3x3 SAME
-    or 1x1, as im2col + one f32 matmul. Returns (N, O, H, W) f32."""
+def _im2col_conv(x: torch.Tensor, wmat: torch.Tensor, k: int) -> torch.Tensor:
+    """Conv of NCHW `x` with an im2col weight matrix (O, I*k*k), 3x3 SAME or
+    1x1: one matrix product. Returns (N, O, H, W)."""
     n, _, h, w = x.shape
-    wq = params[f"{name}_wq"]
-    k = params[f"{name}_w"].shape[-1]
     cols = F.unfold(x, kernel_size=k, padding=k // 2) if k > 1 else x.reshape(n, x.shape[1], h * w)
-    return (wq @ cols).reshape(n, wq.shape[0], h, w)
+    return (wmat @ cols).reshape(n, wmat.shape[0], h, w)
+
+
+def _conv_acc(x: torch.Tensor, params: Params, name: str) -> torch.Tensor:
+    """Integer-exact conv accumulator of NCHW f32-carried int8 `x` (f32)."""
+    return _im2col_conv(x, params[f"{name}_wq"], params[f"{name}_w"].shape[-1])
+
+
+def superpoint_float(params: Params, images: torch.Tensor, dtype=torch.float32):
+    """Float inference on (N, H, W) grayscale images in [0, 1] (H, W
+    multiples of 8) with the dequantized weights, in `dtype`; the input is
+    first put on the quantized model's grid (round(x / s_in) * s_in).
+
+    Returns semi (N, H/8, W/8, 65) logits and desc (N, H/8, W/8, 256)
+    unnormalized descriptors.
+    """
+    s_in = params["input_scale"].to(dtype)
+    x = torch.round(images[:, None].to(dtype) / s_in) * s_in
+
+    def conv(x, name, relu=True):
+        y = _im2col_conv(x, params[f"{name}_wf"].to(dtype), params[f"{name}_w"].shape[-1])
+        y = y + params[f"{name}_b"].to(dtype)[:, None, None]
+        return torch.relu(y) if relu else y
+
+    for name in _ENCODER:
+        x = conv(x, name)
+        if name in ("conv1b", "conv2b", "conv3b"):
+            x = F.max_pool2d(x, 2)
+    semi = conv(conv(x, "convPa"), "convPb", relu=False)
+    desc = conv(conv(x, "convDa"), "convDb", relu=False)
+    return semi.permute(0, 2, 3, 1).contiguous(), desc.permute(0, 2, 3, 1).contiguous()
 
 
 def _qconv(x, params, name, in_scale, relu):
@@ -198,3 +242,10 @@ def int8_accumulator_maxima(params: Params, images: torch.Tensor) -> Dict[str, t
     da, scd = qconv(x, "convDa", sc, True)
     qconv(da, "convDb", scd, False)
     return maxima
+
+
+def grid_to_patch_major(grid: torch.Tensor) -> torch.Tensor:
+    """(N, Hc, Wc, C) -> (N, Hc*Wc, C) in the reference's baked patch order,
+    patch = col * Hc + row."""
+    n, hc, wc, c = grid.shape
+    return grid.permute(0, 2, 1, 3).reshape(n, wc * hc, c)

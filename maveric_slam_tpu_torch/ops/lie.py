@@ -1,13 +1,13 @@
-"""SO(3)/SE(3) exponentials and logarithms, batched and branch-free (port
-of the parts of maveric_slam_tpu/ops/lie.py that projection, PnP, bundle
-adjustment and the pose graph use).
+"""Quaternions and SO(3)/SE(3) exponentials, logarithms and Jacobians,
+batched and branch-free (port of maveric_slam_tpu/ops/lie.py).
 
 Every regime (near zero, normal, near pi) is computed and selected with
 `torch.where`, never with a data-dependent Python branch, so the functions
 run under `torch.func.vmap` and forward-mode `torch.func.jacfwd`.
 
-Conventions: rotations act on column vectors; leading batch dimensions are
-allowed everywhere; an SE(3) element is an (R (..., 3, 3), t (..., 3)) pair.
+Conventions: quaternions are (w, x, y, z); rotations act on column vectors;
+leading batch dimensions are allowed everywhere; an SE(3) element is an
+(R (..., 3, 3), t (..., 3)) pair.
 """
 
 from __future__ import annotations
@@ -18,6 +18,76 @@ _EPS = 1e-8
 # Below this squared angle the Taylor expansions are selected (both branches
 # are computed; the cutoff only controls accuracy).
 _SMALL_THETA2 = 1e-8
+
+
+def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
+    """Hamilton product."""
+    w1, x1, y1, z1 = torch.unbind(q1, dim=-1)
+    w2, x2, y2, z2 = torch.unbind(q2, dim=-1)
+    return torch.stack([
+        w1 * w2 - x1 * x2 - y1 * y2 - z1 * z2,
+        w1 * x2 + x1 * w2 + y1 * z2 - z1 * y2,
+        w1 * y2 - x1 * z2 + y1 * w2 + z1 * x2,
+        w1 * z2 + x1 * y2 - y1 * x2 + z1 * w2,
+    ], dim=-1)
+
+
+def quat_conjugate(q: torch.Tensor) -> torch.Tensor:
+    return q * torch.tensor([1.0, -1.0, -1.0, -1.0], dtype=q.dtype, device=q.device)
+
+
+def quat_normalize(q: torch.Tensor) -> torch.Tensor:
+    return q / torch.clamp(torch.linalg.vector_norm(q, dim=-1, keepdim=True), min=_EPS)
+
+
+def _cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = torch.broadcast_tensors(a, b)
+    return torch.linalg.cross(a, b, dim=-1)
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vectors by unit quaternions: v + 2 (w (u x v) + u x (u x v))."""
+    w, u = q[..., :1], q[..., 1:]
+    uv = _cross(u, v)
+    return v + 2.0 * (w * uv + _cross(u, uv))
+
+
+def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
+    w, x, y, z = torch.unbind(quat_normalize(q), dim=-1)
+    xx, yy, zz = x * x, y * y, z * z
+    xy, xz, yz = x * y, x * z, y * z
+    wx, wy, wz = w * x, w * y, w * z
+    r = torch.stack([
+        1 - 2 * (yy + zz), 2 * (xy - wz), 2 * (xz + wy),
+        2 * (xy + wz), 1 - 2 * (xx + zz), 2 * (yz - wx),
+        2 * (xz - wy), 2 * (yz + wx), 1 - 2 * (xx + yy),
+    ], dim=-1)
+    return r.reshape(r.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Shepperd's method, branch-free: all four candidate forms are computed
+    and the best-conditioned one selected with `torch.where`."""
+    m00, m01, m02 = R[..., 0, 0], R[..., 0, 1], R[..., 0, 2]
+    m10, m11, m12 = R[..., 1, 0], R[..., 1, 1], R[..., 1, 2]
+    m20, m21, m22 = R[..., 2, 0], R[..., 2, 1], R[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def safe_sqrt(x):
+        return torch.sqrt(torch.clamp(x, min=_EPS))
+
+    s0 = safe_sqrt(tr + 1.0) * 2.0
+    q0 = torch.stack([0.25 * s0, (m21 - m12) / s0, (m02 - m20) / s0, (m10 - m01) / s0], -1)
+    s1 = safe_sqrt(1.0 + m00 - m11 - m22) * 2.0
+    q1 = torch.stack([(m21 - m12) / s1, 0.25 * s1, (m01 + m10) / s1, (m02 + m20) / s1], -1)
+    s2 = safe_sqrt(1.0 + m11 - m00 - m22) * 2.0
+    q2 = torch.stack([(m02 - m20) / s2, (m01 + m10) / s2, 0.25 * s2, (m12 + m21) / s2], -1)
+    s3 = safe_sqrt(1.0 + m22 - m00 - m11) * 2.0
+    q3 = torch.stack([(m10 - m01) / s3, (m02 + m20) / s3, (m12 + m21) / s3, 0.25 * s3], -1)
+    cond0 = (tr > 0.0)[..., None]
+    cond1 = ((m00 > m11) & (m00 > m22))[..., None]
+    cond2 = (m11 > m22)[..., None]
+    return quat_normalize(torch.where(cond0, q0, torch.where(cond1, q1, torch.where(cond2, q2, q3))))
 
 
 def hat(omega: torch.Tensor) -> torch.Tensor:
@@ -122,6 +192,15 @@ def so3_inverse_left_jacobian(omega: torch.Tensor) -> torch.Tensor:
     return _eye_like(W) - 0.5 * W + c[..., None, None] * (W @ W)
 
 
+def so3_right_jacobian(omega: torch.Tensor) -> torch.Tensor:
+    """J_r(omega) = J_l(-omega)."""
+    return so3_left_jacobian(-omega)
+
+
+def so3_inverse_right_jacobian(omega: torch.Tensor) -> torch.Tensor:
+    return so3_inverse_left_jacobian(-omega)
+
+
 def se3_compose(Ra, ta, Rb, tb):
     """(Ra, ta) * (Rb, tb): first apply b, then a."""
     return Ra @ Rb, _mv(Ra, tb) + ta
@@ -130,6 +209,11 @@ def se3_compose(Ra, ta, Rb, tb):
 def se3_inverse(R, t):
     Rt = R.transpose(-1, -2)
     return Rt, -_mv(Rt, t)
+
+
+def se3_apply(R, t, points):
+    """Transform points (..., 3): R p + t."""
+    return _mv(R, points) + t
 
 
 def se3_exp(xi: torch.Tensor):

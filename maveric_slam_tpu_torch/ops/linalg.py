@@ -1,5 +1,7 @@
-"""Small batched linear algebra (port of maveric_slam_tpu/ops/linalg.py, the
-parts the tracking step and bundle adjustment use). Batches are (..., n, n)."""
+"""Small batched linear algebra (port of maveric_slam_tpu/ops/linalg.py).
+Batches are (..., n, n). The JAX package's functions here are `jnp` code
+outside any Pallas kernel, so they are plain PyTorch, except the smallest
+eigenvector by inverse iteration, which is the nullspace kernel."""
 
 from __future__ import annotations
 
@@ -38,6 +40,74 @@ def inv3x3(M: torch.Tensor, damping=0.0) -> torch.Tensor:
         C, -(a * h - b * g), (a * e - b * d),
     ], dim=-1).reshape(M.shape)
     return cof * inv_det[..., None, None]
+
+
+def solve_psd(A: torch.Tensor, b: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """Solve A x = b for symmetric positive-definite A (..., n, n), b
+    (..., n), by Cholesky and two triangular solves; `damping` is added to
+    the diagonal first."""
+    if damping:
+        A = A + damping * torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    L = torch.linalg.cholesky(A)
+    y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+    return torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)[..., 0]
+
+
+def block_diag_inv(blocks: torch.Tensor, damping: float = 0.0) -> torch.Tensor:
+    """Invert a batch of 3x3 diagonal blocks (L, 3, 3), e.g. the landmark
+    Hessian blocks, after adding `damping` to their diagonals."""
+    return inv3x3(blocks, damping=damping)
+
+
+def jacobi_eigh(A: torch.Tensor, sweeps: int = 6):
+    """Symmetric eigendecomposition of (..., n, n) by cyclic Jacobi
+    rotations: `sweeps` passes over the pivot pairs (p, q), p < q, in row
+    order, each rotation applied as A <- G^T A G, V <- V G with the stable
+    angle of Golub & Van Loan 8.4.1 (sgn(0) = +1; no rotation where
+    |a_pq| <= 1e-30). Returns (w, V), eigenvalues ascending (a stable
+    sort), A = V diag(w) V^T."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device)
+    V = eye.expand(A.shape).clone()
+    for _ in range(sweeps):
+        for p in range(n - 1):
+            for q in range(p + 1, n):
+                app, aqq, apq = A[..., p, p], A[..., q, q], A[..., p, q]
+                safe = torch.abs(apq) > 1e-30
+                tau = (aqq - app) / torch.where(safe, 2.0 * apq, 1.0)
+                sgn = torch.where(tau >= 0, 1.0, -1.0)
+                t = sgn / (torch.abs(tau) + torch.sqrt(1.0 + tau * tau))
+                t = torch.where(safe, t, 0.0)
+                c = 1.0 / torch.sqrt(1.0 + t * t)
+                s = t * c
+                G = eye.expand(A.shape).clone()
+                G[..., p, p] = c
+                G[..., q, q] = c
+                G[..., p, q] = s
+                G[..., q, p] = -s
+                A = G.transpose(-1, -2) @ A @ G
+                V = V @ G
+    w = torch.diagonal(A, dim1=-2, dim2=-1)
+    order = torch.argsort(w, dim=-1, stable=True)
+    return (torch.take_along_dim(w, order, dim=-1),
+            torch.take_along_dim(V, order[..., None, :], dim=-1))
+
+
+def smallest_eigvec_sym(A: torch.Tensor, refine_steps: int = 0) -> torch.Tensor:
+    """Unit eigenvector (..., n) of the smallest eigenvalue of symmetric A
+    (..., n, n), by `jacobi_eigh`; `refine_steps` steps of inverse power
+    iteration shifted to w0 - 1e-6 tr(A) refine it."""
+    n = A.shape[-1]
+    w, v = jacobi_eigh(A)
+    x = v[..., :, 0]
+    if refine_steps:
+        tr = torch.diagonal(A, dim1=-2, dim2=-1).sum(-1)
+        shift = w[..., 0] - 1e-6 * tr
+        M = A - shift[..., None, None] * torch.eye(n, dtype=A.dtype, device=A.device)
+        for _ in range(refine_steps):
+            x = torch.linalg.solve(M, x[..., :, None])[..., 0]
+            x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-30)
+    return x
 
 
 def cholesky_small(A: torch.Tensor) -> torch.Tensor:

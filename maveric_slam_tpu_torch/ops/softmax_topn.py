@@ -1,5 +1,5 @@
-"""Detector-head post-processing: approximate softmax, top-N selection and
-sub-pixel keypoints (port of maveric_slam_tpu/ops/softmax_topn.py).
+"""Detector-head post-processing: approximate and exact softmax, top-N
+selection and sub-pixel keypoints (port of maveric_slam_tpu/ops/softmax_topn.py).
 
 Grids keep the JAX package's layout: (..., Hc, Wc, 65) int8 logits in,
 (..., Hc, Wc) maps out, cells flattened row-major (r * Wc + c). Leading axes
@@ -48,6 +48,16 @@ def approx_softmax_grid(semi_q: torch.Tensor, scale, degree: int = 5) -> Softmax
     indices = torch.where(has_point, argmax, DUSTBIN).to(torch.int32)
     probs = torch.where(has_point, max_exp / denom, -1.0)
     return SoftmaxGrid(probs=probs, indices=indices)
+
+
+def exact_softmax_grid(semi: torch.Tensor) -> SoftmaxGrid:
+    """Float softmax over the 65 channels of float logits (the golden
+    path): probs are the dustbin-free channel maxima of exp / (sum + 1e-5),
+    indices the first channel that reaches them."""
+    e = torch.exp(semi)
+    nodust = (e / (torch.sum(e, dim=-1, keepdim=True) + 1e-5))[..., :DUSTBIN]
+    return SoftmaxGrid(probs=torch.amax(nodust, dim=-1),
+                       indices=torch.argmax(nodust, dim=-1).to(torch.int32))
 
 
 class TopN(NamedTuple):
@@ -132,3 +142,10 @@ def subpixel_xy(
     rows = torch.arange(hc, device=semi_q.device)[:, None].to(torch.float32)
     cols = torch.arange(wc, device=semi_q.device)[None, :].to(torch.float32)
     return torch.stack([cols * 8 + ex, rows * 8 + ey], dim=-1)
+
+
+def cell_to_xy(cells: torch.Tensor, in_cell_idx: torch.Tensor, grid_w: int):
+    """Flat row-major cell index and in-cell channel k -> full-resolution
+    pixel (x, y): channel k is the sub-cell offset (k % 8, k // 8)."""
+    row, col = cells // grid_w, cells % grid_w
+    return col * 8 + in_cell_idx % 8, row * 8 + in_cell_idx // 8

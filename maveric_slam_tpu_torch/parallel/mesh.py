@@ -29,6 +29,7 @@ import multiprocessing
 import os
 import queue as queue_lib
 import socket
+import threading
 import time
 import traceback
 from typing import Callable, Optional, Sequence, Tuple
@@ -166,6 +167,14 @@ def all_gather(x: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     return out.to(torch.bool) if x.dtype == torch.bool else out
 
 
+def barrier(mesh: Mesh) -> None:
+    """Return once every rank of the mesh has reached this call."""
+    if mesh.backend == "nccl":
+        dist.barrier(device_ids=[mesh.device.index])
+    else:
+        dist.barrier()
+
+
 def local_rows(n: int, mesh: Mesh, what: str = "rows") -> slice:
     """This rank's block of `n` rows split evenly over the mesh (n must
     divide by the mesh size)."""
@@ -203,20 +212,43 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def _rank_entry(fn, rank, world, port, device, threads, args, results) -> None:
+class RankFailure(RuntimeError):
+    """A rank of `spawn` raised: `rank`, the exception's class name `kind`,
+    its message `detail` and the rank's traceback `trace`."""
+
+    def __init__(self, rank: int, world: int, kind: str, detail: str, trace: str):
+        super().__init__(f"rank {rank} of {world} failed:\n{trace}")
+        self.rank, self.kind, self.detail, self.trace = rank, kind, detail, trace
+
+
+def _exit_with_parent(parent: int) -> None:
+    """End this process once its parent is gone (a rank outlives no
+    launcher that was killed)."""
+    while os.getppid() == parent:
+        time.sleep(1.0)
+    os._exit(1)
+
+
+def _rank_entry(fn, rank, world, port, device, threads, args, results, parent) -> None:
     os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
                       WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    threading.Thread(target=_exit_with_parent, args=(parent,), daemon=True).start()
     if threads:
         torch.set_num_threads(threads)
     try:
         maybe_init_distributed(device)
-        results.put((rank, True, fn(*args)))
-    except BaseException:
-        results.put((rank, False, traceback.format_exc()))
-        raise SystemExit(1)
-    finally:
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        value = fn(*args)
+    except BaseException as e:  # noqa: BLE001 (reported to the parent)
+        results.put((rank, False, (type(e).__name__, str(e), traceback.format_exc())))
+        # Exit without waiting on the group: a peer may sit in a collective
+        # (or a step thread of this rank may still hold one), and
+        # destroy_process_group could block on it. `spawn` kills the rest.
+        results.close()
+        results.join_thread()
+        os._exit(1)
+    results.put((rank, True, value))
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def spawn(fn: Callable, world_size: int, args: tuple = (), device=None,
@@ -231,14 +263,16 @@ def spawn(fn: Callable, world_size: int, args: tuple = (), device=None,
     results picklable. `threads` sets each rank's torch thread count (None:
     the host's cores shared out among the ranks). When a
     rank raises, its traceback is raised here as RuntimeError and the other
-    ranks are killed; so they are when `timeout_s` (None: no limit) passes.
+    ranks are killed (`RankFailure`); so they are when `timeout_s` (None:
+    no limit) passes. A rank ends itself when the caller's process is gone.
     """
     ctx = multiprocessing.get_context("spawn")
     threads = threads or max(1, (os.cpu_count() or 1) // world_size)
     results = ctx.Queue()
     port = _free_port()
     procs = [ctx.Process(target=_rank_entry, daemon=True,
-                         args=(fn, r, world_size, port, device, threads, args, results))
+                         args=(fn, r, world_size, port, device, threads, args, results,
+                               os.getpid()))
              for r in range(world_size)]
     for p in procs:
         p.start()
@@ -264,7 +298,7 @@ def spawn(fn: Callable, world_size: int, args: tuple = (), device=None,
                 else:
                     continue
             if not ok:
-                raise RuntimeError(f"rank {rank} of {world_size} failed:\n{value}")
+                raise RankFailure(rank, world_size, *value)
             out[rank] = value
         for p in procs:
             p.join(timeout=60)

@@ -27,8 +27,20 @@ loop decisions that it has not applied yet; `save` raises ValueError then
 rather than write a checkpoint that drops them (the JAX package's `save`
 drops them). At fetch_delay 0 nothing is pending between `process` calls.
 
-A mesh-mode engine (`SlamSystem(mesh=...)`) holds only its rank's blocks
-of the database and the pool; `save` and `restore` refuse it.
+A mesh-mode engine (`SlamSystem(mesh=...)`, one process a rank). Only the
+LCD database's frame rows and the pool's word rows are sharded; everything
+else (tracker state and generators, poses, tracks, the keyframe store,
+loop edges, stats and the ring cursor) is the same on every rank. So
+`engine_state` and `save` are collective: every rank calls them, the
+blocks are all-gathered in rank order, and the state is the whole arrays,
+with the keys, dtypes and shapes of a single engine's (the JAX package
+saves whole arrays from its mesh too). Rank 0 writes the files and a
+barrier follows, so that no rank runs past a checkpoint that is not on
+disk yet. `restore` runs on every rank: each reads the files (a path every
+rank can read), keeps its own rows and checks once that the ranks restored
+the same replicated state (`replica_digest`). A checkpoint of either
+package, from one engine or a mesh of any size, restores into a single
+engine or into a mesh whose size divides the ring and the vocabulary.
 """
 
 from __future__ import annotations
@@ -39,6 +51,10 @@ from typing import TYPE_CHECKING, Dict, Tuple
 
 import numpy as np
 import torch
+
+from ..loopclosure import sharded_lcd
+from ..mapping import sharded_pool
+from ..parallel import mesh as mesh_lib
 
 if TYPE_CHECKING:  # pragma: no cover
     from ..slam import SlamSystem
@@ -53,10 +69,9 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def engine_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
-    """(arrays, meta): everything a checkpoint of the engine holds, as
-    `save` writes it (meta without the state file's name). Two engines in
-    the same state give equal arrays, dtypes included, and equal metas."""
+def _replicated_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
+    """(arrays, meta) of everything but the database's and the pool's rows:
+    the same on every rank of a mesh."""
     arrays = {}
 
     if slam.state is not None:
@@ -89,11 +104,7 @@ def engine_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
     arrays["tracks_words"] = np.array([tt.words.get(t, -1) for t in tids], np.int64)
 
     if slam.enable_loop_closure:
-        for name in _DB_FIELDS:
-            arrays[f"db_{name}"] = _np(getattr(slam.db, name))
         arrays["db_next_slot"] = np.array(slam.db.next_slot, np.int32)
-        for name in _POOL_FIELDS:
-            arrays[f"pool_{name}"] = _np(getattr(slam.pool, name))
         arrays["pool_window"] = np.array(slam.pool.window, np.int32)
         slots = [k for k, e in enumerate(slam.kf_store) if e is not None]
         if slots:
@@ -127,22 +138,57 @@ def engine_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
     return arrays, meta
 
 
-def _refuse_mesh(slam: "SlamSystem") -> None:
-    if slam.mesh is not None:
-        raise ValueError("checkpointing a mesh-mode engine is not supported: each rank holds only "
-                         "its blocks of the loop-closure database and the pool")
+def _whole(t: torch.Tensor, slam: "SlamSystem") -> np.ndarray:
+    """A sharded field's whole rows: this engine's tensor, or in mesh mode
+    every rank's block gathered in rank order (collective; int8 and bool
+    travel as bytes, never through floats)."""
+    if slam.mesh is None:
+        return _np(t)
+    return _np(mesh_lib.all_gather(t, slam.mesh).reshape(-1, *t.shape[1:]))
+
+
+def engine_state(slam: "SlamSystem") -> Tuple[Dict[str, np.ndarray], dict]:
+    """(arrays, meta): everything a checkpoint of the engine holds, as
+    `save` writes it (meta without the state file's name). Two engines in
+    the same state give equal arrays, dtypes included, and equal metas. In
+    mesh mode every rank must call it (it gathers the sharded rows) and
+    each gets the whole state."""
+    arrays, meta = _replicated_state(slam)
+    if slam.enable_loop_closure:
+        for name in _DB_FIELDS:
+            arrays[f"db_{name}"] = _whole(getattr(slam.db, name), slam)
+        for name in _POOL_FIELDS:
+            arrays[f"pool_{name}"] = _whole(getattr(slam.pool, name), slam)
+    return arrays, meta
+
+
+def replica_digest(slam: "SlamSystem") -> np.ndarray:
+    """`parallel.mesh.digest` of each replicated array (in key order) and of
+    the meta: equal on every rank of a mesh whose replicas agree."""
+    arrays, meta = _replicated_state(slam)
+    meta_bytes = np.frombuffer(json.dumps(meta, sort_keys=True).encode(), np.uint8)
+    return np.concatenate([mesh_lib.digest(arrays[k]) for k in sorted(arrays)]
+                          + [mesh_lib.digest(meta_bytes)])
 
 
 def save(slam: "SlamSystem", path: str) -> None:
-    """Write the engine's state to the checkpoint directory `path`."""
-    _refuse_mesh(slam)
+    """Write the engine's state to the checkpoint directory `path`. In mesh
+    mode every rank calls it; rank 0 writes, and every rank returns once
+    the checkpoint is committed."""
     if slam._pending or slam._pending_ba is not None or slam._pending_loops:
         raise ValueError(
             "the engine holds work in flight (fetch_delay > 0): a checkpoint now would drop "
             "it; save between calls at fetch_delay 0, or after finish()")
     arrays, meta = engine_state(slam)
+    if slam.mesh is None or slam.mesh.rank == 0:
+        _write(path, slam.frame_idx, arrays, meta)
+    if slam.mesh is not None:
+        mesh_lib.barrier(slam.mesh)
+
+
+def _write(path: str, frame_idx: int, arrays: Dict[str, np.ndarray], meta: dict) -> None:
     os.makedirs(path, exist_ok=True)
-    state_file = f"state_{slam.frame_idx:08d}.npz"
+    state_file = f"state_{frame_idx:08d}.npz"
     np.savez_compressed(os.path.join(path, state_file), **arrays)
     meta = {"state_file": state_file, **meta}
     # Commit point: meta.json names the (already fully written) state file.
@@ -165,23 +211,32 @@ def _generator(state: np.ndarray, device: torch.device) -> torch.Generator:
 
 
 def restore(slam: "SlamSystem", path: str) -> None:
-    """Load a checkpoint (written by either package) into a fresh
-    SlamSystem, on the engine's device."""
-    _refuse_mesh(slam)
+    """Load a checkpoint (written by either package, from one engine or a
+    mesh) into a fresh SlamSystem, on the engine's device. In mesh mode
+    every rank calls it and keeps its own rows of the database and the
+    pool; it raises ValueError when the checkpoint's ring or vocabulary does
+    not divide over the mesh, and RuntimeError when the ranks restored
+    different replicated states."""
     from ..frontend.tracker import TrackerState
     from ..loopclosure.lcd import LoopDatabase
     from ..mapping.feature_pool import DevicePool
     from ..slam import LoopClosureEvent
     from ..tracks import Observation
 
-    dev = slam.device
+    dev, mesh = slam.device, slam.mesh
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     with np.load(os.path.join(path, meta.get("state_file", "state.npz"))) as z:
         arrays = dict(z)
+    sharded = meta["enable_loop_closure"] and "db_multihot" in arrays
+    if mesh is not None and sharded:
+        for key, what in (("db_multihot", "LCD ring frames"), ("pool_first_seen", "vocabulary words")):
+            if key in arrays and arrays[key].shape[0] % mesh.size:
+                raise ValueError(f"the checkpoint's {arrays[key].shape[0]} {what} do not divide "
+                                 f"over a mesh of {mesh.size} ranks")
 
-    def tensor(name):
-        return torch.from_numpy(np.array(arrays[name])).to(dev)  # np.array keeps 0-d arrays 0-d
+    def tensor(name, device=dev):
+        return torch.from_numpy(np.array(arrays[name])).to(device)  # np.array keeps 0-d arrays 0-d
 
     slam.frame_idx = meta["frame_idx"]
     slam.stats = meta["stats"]
@@ -218,12 +273,18 @@ def restore(slam: "SlamSystem", path: str) -> None:
         if words is not None and words[row] >= 0:
             tt.words[int(tid)] = int(words[row])
 
-    if meta["enable_loop_closure"] and "db_multihot" in arrays:
-        slam.db = LoopDatabase(**{n: tensor(f"db_{n}") for n in _DB_FIELDS},
+    if sharded:
+        # A mesh builds the whole rows on the host and keeps its own block.
+        whole = dev if mesh is None else "cpu"
+        slam.db = LoopDatabase(**{n: tensor(f"db_{n}", whole) for n in _DB_FIELDS},
                                next_slot=int(np.asarray(arrays["db_next_slot"]).reshape(-1)[0]))
+        if mesh is not None:
+            slam.db = sharded_lcd.shard_database(slam.db, mesh)
         if "pool_first_seen" in arrays:
-            slam.pool = DevicePool(**{n: tensor(f"pool_{n}") for n in _POOL_FIELDS},
+            slam.pool = DevicePool(**{n: tensor(f"pool_{n}", whole) for n in _POOL_FIELDS},
                                    window=int(np.asarray(arrays["pool_window"]).reshape(-1)[0]))
+            if mesh is not None:
+                slam.pool = sharded_pool.shard_pool(slam.pool, mesh)
         if "kf_slot" in arrays:
             has_depth = "kf_depth" in arrays
             n_top = arrays["kf_desc"].shape[1]
@@ -244,3 +305,5 @@ def restore(slam: "SlamSystem", path: str) -> None:
                 (int(ij[0]), int(ij[1]), arrays["loop_edge_R"][k], arrays["loop_edge_t"][k])
                 for k, ij in enumerate(arrays["loop_edge_ij"])
             ]
+    if mesh is not None:
+        mesh_lib.check_replicas(replica_digest(slam), mesh, f"the restore of {path}")

@@ -737,3 +737,76 @@ def test_mesh_nccl_world_size_one(cuda):
         np.testing.assert_array_equal(
             r["pool"]["weights"][f], feature_pool.covisibility_weights(pool, torch.from_numpy(q)).numpy())
     np.testing.assert_array_equal(r["pool"]["num_sightings"], pool.num_sightings.numpy())
+
+
+def _two_view(rng, n=1000):
+    """Random points 4-12 m ahead, a small motion: normalized projections
+    p1, p2 and the true (R, t), as numpy."""
+    X = np.stack([rng.uniform(-4, 4, n), rng.uniform(-2, 2, n), rng.uniform(4, 12, n)], -1)
+    w = rng.normal(size=3) * 0.05
+    th = np.linalg.norm(w)
+    K = np.array([[0, -w[2], w[1]], [w[2], 0, -w[0]], [-w[1], w[0], 0]]) / th
+    R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+    t = rng.normal(size=3)
+    t *= 0.5 / np.linalg.norm(t)
+    X2 = X @ R.T + t
+    return ((X[:, :2] / X[:, 2:]).astype(np.float32), (X2[:, :2] / X2[:, 2:]).astype(np.float32),
+            R.astype(np.float32), t.astype(np.float32))
+
+
+def test_surface_svd3_functions_launch_the_kernel(cuda):
+    """polar_decomposition, decompose_essential and recover_pose launch the
+    svd3 kernel once each (as the JAX functions reach svd3_pallas) and agree
+    with the CPU: R P reconstructs A within 1e-3 max|A|, the rotation pair
+    and t (up to sign) within 1e-3, recover_pose's pose within 1e-3 and
+    its counts equal on points with depth well away from 0."""
+    from maveric_slam_tpu_torch.geometry import epipolar
+    from maveric_slam_tpu_torch.ops import kernels, svd3 as svd3_ops
+
+    rng = np.random.default_rng(21)
+    p1, p2, R, t = _two_view(rng)
+    E = epipolar.essential_from_pose(torch.from_numpy(R), torch.from_numpy(t))
+    E = torch.stack([E * s for s in np.linspace(0.5, 2.0, 64, dtype=np.float32)])
+    A = torch.from_numpy(rng.normal(size=(64, 3, 3)).astype(np.float32))
+    args = {"polar": (A,), "decompose": (E,), "recover": (E, torch.from_numpy(p1), torch.from_numpy(p2))}
+    fns = {"polar": svd3_ops.polar_decomposition, "decompose": epipolar.decompose_essential,
+           "recover": epipolar.recover_pose}
+    out = {}
+    for dev in ("cuda", "cpu"):
+        kernels.reset_launch_counts()
+        out[dev] = {k: [x.cpu() for x in fns[k](*(a.to(dev) for a in args[k]))] for k in fns}
+        out[dev]["launches"] = kernels.launch_counts()
+    assert out["cuda"]["launches"]["svd3"] == 3 and sum(out["cuda"]["launches"].values()) == 3
+    (Rg, Pg), (Rc, Pc) = out["cuda"]["polar"], out["cpu"]["polar"]
+    m = float(A.abs().max())
+    assert float((Rg @ Pg - A).abs().max()) <= 1e-3 * m and float((Pg - Pc).abs().max()) <= 1e-3 * m
+    (R1, R2, tt), (R1c, R2c, tc) = out["cuda"]["decompose"], out["cpu"]["decompose"]
+    same = torch.maximum((R1 - R1c).abs().amax((-1, -2)), (R2 - R2c).abs().amax((-1, -2)))
+    swapped = torch.maximum((R1 - R2c).abs().amax((-1, -2)), (R2 - R1c).abs().amax((-1, -2)))
+    assert float(torch.minimum(same, swapped).max()) <= 1e-3
+    assert float(torch.minimum((tt - tc).abs().amax(-1), (tt + tc).abs().amax(-1)).max()) <= 1e-3
+    (Rr, tr, nr), (Rrc, trc, nrc) = out["cuda"]["recover"], out["cpu"]["recover"]
+    assert torch.equal(nr, nrc) and (nr == 1000).all()
+    assert float((Rr - Rrc).abs().max()) <= 1e-3 and float((tr - trc).abs().max()) <= 1e-3
+
+
+def test_superpoint_float_card_vs_cpu(cuda):
+    """The float net with TF32 off at (1, 96, 320): launches no kernel of
+    the port, and the card's largest error against the network in float64
+    on the CPU is at most twice the CPU's f32 error (ROADMAP Faults (q))."""
+    from maveric_slam_tpu_torch.ops import kernels
+
+    assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    img = torch.from_numpy(_orbit96((0,))[0][None])
+    out = {}
+    for name, dev, dtype in (("card", "cuda", torch.float32), ("cpu", "cpu", torch.float32),
+                             ("f64", "cpu", torch.float64)):
+        params = sp.load_params(device=dev)
+        if dtype == torch.float64:
+            params = {k: v.double() if v.is_floating_point() else v for k, v in params.items()}
+        kernels.reset_launch_counts()
+        out[name] = [x.cpu().double() for x in sp.superpoint_float(params, img.to(dev, dtype), dtype)]
+        assert not any(kernels.launch_counts().values())
+    for k in range(2):
+        g, c, x = out["card"][k], out["cpu"][k], out["f64"][k]
+        assert float((g - x).abs().max()) <= 2 * float((c - x).abs().max())

@@ -15,9 +15,8 @@ Bars:
 - against JAX's mesh engine: tests/test_torch_slam.py's frames-0-12 bars
   (counts, (cell, word) pairs and sightings exact, odometry within twice
   JAX's own jit/eager spread);
-- every rank returns the same bytes; `checkpoint.save` refuses a mesh
-  engine; on a mesh of one rank the engine is the single-device engine
-  bit for bit.
+- every rank returns the same bytes; on a mesh of one rank the engine is
+  the single-device engine bit for bit.
 The ranks import neither JAX nor the JAX package (tests/torch_mesh_worker.py).
 """
 
@@ -47,7 +46,7 @@ def scene():
 
 
 @pytest.fixture(scope="module")
-def runs(tmp_path_factory):
+def runs():
     """The port alone (one thread, as the ranks), the port's mesh engine on
     4 ranks and on 1, and the JAX mesh engine on 4 devices."""
     frames, steps, verifications = scene()
@@ -57,8 +56,7 @@ def runs(tmp_path_factory):
         single = worker.engine(TCFG, frames, steps, verifications)
     finally:
         torch.set_num_threads(threads)
-    ckpt = str(tmp_path_factory.mktemp("mesh_ckpt"))
-    mesh = {n: tmesh.spawn(worker.mesh_engine, n, args=(TCFG, frames, steps, verifications, ckpt),
+    mesh = {n: tmesh.spawn(worker.mesh_engine, n, args=(TCFG, frames, steps, verifications),
                            device="cpu", threads=1, timeout_s=SPAWN_TIMEOUT_S)
             for n in (RANKS, 1)}
     with pytest.MonkeyPatch.context() as mp:
@@ -128,7 +126,3 @@ def test_mesh_engine_on_one_rank_is_single_device(runs):
     np.testing.assert_array_equal(one["poses"], single["poses"])
     assert one["windows"] == single["windows"] and one["loops"] == single["loops"]
 
-
-def test_checkpoint_refuses_a_mesh_engine(runs):
-    _, mesh, _ = runs
-    assert all(r["checkpoint_refused"] for r in mesh[RANKS] + mesh[1])

@@ -7,7 +7,9 @@ them, and the `track` CLI's --mesh, on the CPU (gloo).
   counterpart of tests/test_multihost.py);
 - `cli.track --mesh 2 --device cpu` on rendered 192x640 PNGs, once
   starting its two ranks itself and once as two processes with torchrun's
-  environment: rank 0 alone prints and writes the poses;
+  environment: rank 0 alone prints and writes the poses; it refuses to
+  resume a checkpoint that does not divide over its ranks;
+- ranks end themselves when the process that spawned them is killed;
 - concurrent first builds of the CUDA kernel library: two processes build
   into one empty directory at once with a stub in place of nvcc; one of
   them compiles, and both get the same library.
@@ -102,11 +104,58 @@ def test_track_cli_mesh_under_torchrun_environment(images, tmp_path):
 
 
 def test_track_cli_mesh_refuses_checkpoints(images, tmp_path):
+    """--mesh takes --checkpoint and --resume (tests/test_torch_mesh_checkpoint.py),
+    but refuses to resume a checkpoint whose LCD ring does not divide over
+    its ranks: every rank raises before it reads a frame, and the CLI fails
+    with the reason."""
+    ckpt = tmp_path / "ckpt"
+    ckpt.mkdir()
+    np.savez(ckpt / "state_00000003.npz", db_multihot=np.zeros((4095, 1), np.int8))
+    (ckpt / "meta.json").write_text('{"state_file": "state_00000003.npz", "enable_loop_closure": true}')
     res = subprocess.run([sys.executable, "-m", "maveric_slam_tpu_torch.cli.track", str(images),
-                          "--device", "cpu", "--mesh", "2", "--checkpoint", str(tmp_path)],
+                          "--device", "cpu", "--mesh", "2", "--resume", str(ckpt),
+                          "--out-dir", str(tmp_path / "out")],
                          cwd=REPO, env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
                          text=True, timeout=WALL_S)
-    assert res.returncode == 2 and "do not work with --mesh" in res.stderr, res.stderr
+    assert res.returncode != 0, res.stdout
+    assert "the checkpoint's 4095 LCD ring frames do not divide over a mesh of 2 ranks" in res.stderr
+    assert not (tmp_path / "out").exists()
+
+
+def _alive(pid: int) -> bool:
+    """The process exists and is not a zombie awaiting its reaper."""
+    try:
+        with open(f"/proc/{pid}/stat") as f:
+            return f.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except FileNotFoundError:
+        return False
+
+
+def test_ranks_end_when_their_launcher_is_killed(tmp_path):
+    """`spawn`'s ranks outlive no launcher killed with SIGKILL (a
+    preempted `cli.track --mesh`): each ends itself within seconds."""
+    import signal
+    import time
+
+    code = ("import torch_mesh_worker as w; from maveric_slam_tpu_torch.parallel import mesh; "
+            f"mesh.spawn(w.sleep_forever, 2, args=({str(tmp_path)!r},), device='cpu', threads=1, "
+            "timeout_s=None)")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join([REPO, os.path.join(REPO, "tests")]))
+    launcher = subprocess.Popen([sys.executable, "-c", code], env=env, cwd=REPO)
+    try:
+        deadline = time.time() + WALL_S
+        while len(list(tmp_path.glob("*.pid"))) < 2 and time.time() < deadline:
+            assert launcher.poll() is None
+            time.sleep(0.1)
+        pids = [int(p.read_text()) for p in tmp_path.glob("*.pid")]
+        assert len(pids) == 2 and all(_alive(p) for p in pids)
+    finally:
+        launcher.send_signal(signal.SIGKILL)
+        launcher.wait(timeout=60)
+    deadline = time.time() + 30
+    while any(_alive(p) for p in pids) and time.time() < deadline:
+        time.sleep(0.2)
+    assert not any(_alive(p) for p in pids)
 
 
 STUB_NVCC = """\

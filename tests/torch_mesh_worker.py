@@ -9,7 +9,10 @@ Each function returns this rank's view; the tests compare the ranks too.
 
 from __future__ import annotations
 
+import copy
+import hashlib
 import sys
+import time
 
 import numpy as np
 import torch
@@ -121,15 +124,25 @@ def components(spec: dict, device="cpu") -> dict:
     return out
 
 
-def engine(config, frames, step_noise, verify_noise=None, fetch_delay: int = 0, mesh=None,
-           device="cpu", checkpoint_dir=None) -> dict:
+def fingerprint(arrays: dict) -> dict:
+    """{key: (dtype, shape, sha256 of the bytes)}: equal for bitwise-equal
+    arrays, and small enough to send back from every rank."""
+    return {k: (str(a.dtype), a.shape, hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest())
+            for k, a in arrays.items()}
+
+
+def engine(config, frames, step_noise=None, verify_noise=None, fetch_delay: int = 0, mesh=None,
+           device="cpu", save_at=None, save_dir=None, restore_dir=None) -> dict:
     """The port's SlamSystem (loop closure on, BA every 4) over the frames
-    with the tracking noise injected (and the verifications' noise, unless
-    None): on `mesh` (a rank of the mesh-mode engine), or alone on `device`.
-    What the tests compare: the trajectory,
-    the odometry steps, every unpacked step, the solved BA windows, the
-    keyframes and loop events; with `checkpoint_dir`, whether
-    `checkpoint.save` refused the engine."""
+    with the tracking noise injected (from its generators when None) and
+    the verifications' noise (unless None): on `mesh` (a rank of the
+    mesh-mode engine), or alone on `device`. With `restore_dir` it first
+    restores that checkpoint and takes the frames after it; with `save_at`
+    it saves into `save_dir` after that frame. What the tests compare: the
+    trajectories, the odometry steps, every unpacked step, the solved BA
+    windows, the keyframes and loop events, the fingerprint of
+    `checkpoint.engine_state` and its meta, and `checkpoint.replica_digest`
+    (of the state right after the restore too)."""
     from maveric_slam_tpu_torch import slam as tslam
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.utils import checkpoint
@@ -139,7 +152,7 @@ def engine(config, frames, step_noise, verify_noise=None, fetch_delay: int = 0, 
                             enable_loop_closure=True, fetch_delay=fetch_delay, device=dev,
                             mesh=mesh,
                             verify_noise=None if verify_noise is None else verify_noise.__getitem__)
-    views, windows = [], []
+    views, windows, out = [], [], {}
     unpack, dispatch = slam._packer.unpack, slam._dispatch_window_ba
 
     def keep(flat):
@@ -154,28 +167,31 @@ def engine(config, frames, step_noise, verify_noise=None, fetch_delay: int = 0, 
             windows.append(fidx)
 
     slam._packer.unpack, slam._dispatch_window_ba = keep, solve
-    slam.process(frames[0])
-    for f, noise in zip(frames[1:], step_noise):
-        slam.process(f, *noise)
+    if restore_dir is not None:
+        checkpoint.restore(slam, restore_dir)
+        restored, meta = checkpoint.engine_state(slam)
+        out.update(restored=fingerprint(restored), restored_meta=copy.deepcopy(meta),
+                   restored_digest=checkpoint.replica_digest(slam))
+    for k in range(slam.frame_idx + 1, len(frames)):
+        noise = () if k == 0 or step_noise is None else step_noise[k - 1]
+        slam.process(frames[k], *noise)
+        if k == save_at:
+            checkpoint.save(slam, save_dir)
     slam.close()
-    out = {"poses": np.stack(slam.poses), "rel": [(R, t) for R, t in slam.rel_poses],
-           "stats": slam.stats, "views": views, "windows": windows, "kf_frames": slam.kf_frames,
-           "loops": [(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events],
-           "next_slot": slam.db.next_slot}
-    if checkpoint_dir is not None:
-        try:
-            checkpoint.save(slam, checkpoint_dir)
-            out["checkpoint_refused"] = False
-        except ValueError:
-            out["checkpoint_refused"] = True
+    state, meta = checkpoint.engine_state(slam)
+    out.update(poses=np.stack(slam.poses), rel=[(R, t) for R, t in slam.rel_poses],
+               stats=slam.stats, views=views, windows=windows, kf_frames=slam.kf_frames,
+               loops=[(e.frame, e.matched_frame, e.num_inliers, e.score) for e in slam.loop_events],
+               next_slot=slam.db.next_slot, trajectory=slam.trajectory(),
+               odometry=slam.odometry_trajectory(), state=fingerprint(state), meta=meta,
+               digest=checkpoint.replica_digest(slam))
     return out
 
 
-def mesh_engine(config, frames, step_noise, verify_noise, checkpoint_dir=None,
-                device="cpu") -> dict:
+def mesh_engine(config, frames, step_noise=None, verify_noise=None, device="cpu", **kw) -> dict:
     """`engine` as one rank of the 1-D mesh over every rank."""
     return engine(config, frames, step_noise, verify_noise,
-                  mesh=mesh_lib.make_mesh(device=device), checkpoint_dir=checkpoint_dir)
+                  mesh=mesh_lib.make_mesh(device=device), **kw)
 
 
 def build_with_stub(build_dir: str, nvcc: str) -> str:
@@ -217,3 +233,39 @@ def engine_on_uneven_mesh(config) -> str:
     except ValueError as e:
         return str(e)
     return ""
+
+
+def mesh_engine_with(kw: dict) -> dict:
+    """`mesh_engine(**kw)`, for `spawn`, which passes positional arguments."""
+    return mesh_engine(**kw)
+
+
+class Fault:
+    """A `MeshElasticRunner` fault hook: each fault (kind, attempt, rank,
+    frame) fires on that rank before that frame's step in that attempt
+    (in every attempt when `attempt` is None). Kinds: "crash" raises,
+    "hang" sleeps past any deadline, "corrupt" scales the last pose's
+    rotation, which the step then carries into the new pose."""
+
+    def __init__(self, *faults):
+        self.faults = faults
+
+    def __call__(self, attempt, rank, frame, system):
+        for kind, a, r, f in self.faults:
+            if (a is None or a == attempt) and (r, f) == (rank, frame):
+                if kind == "crash":
+                    raise RuntimeError("injected device fault")
+                if kind == "hang":
+                    time.sleep(3600.0)
+                if kind == "corrupt":
+                    system.poses[-1][:3, :3] *= 3.0
+
+
+def sleep_forever(pid_dir: str) -> None:
+    """Write this rank's pid into `pid_dir` and sleep: a rank whose
+    launcher may die under it."""
+    import os
+
+    with open(os.path.join(pid_dir, f"{dist.get_rank()}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    time.sleep(3600.0)
