@@ -105,6 +105,23 @@ Phases, in order; any failure raises and exits non-zero:
      votes up to f32 rounding's reach; and `superpoint_float` at (1, 192,
      640), TF32 off, its error against the CPU's float64 at most twice the
      CPU's f32 error;
+  5g. [degenerate] tests/test_degenerate.py's tracker sequences (orbit frames
+     0-2 with a black frame; frame 0 repeated) through `Tracker` on the
+     card, each with its own launch counts: the black frame a flagged
+     constant-velocity fallback with every kernel launched, the recovery,
+     finite repeats, the valid flags and fallback poses against the CPU;
+     [long] tests/test_long_sequence.py on the first 10 orbit frames
+     ping-ponged: 520 frames with a 24-slot LCD ring and 32 pose-graph
+     nodes (bounded state, keyframe cadence, the ring wrapped, loop pairs on
+     matching images, closures after three wraps, the pose graph's node set
+     subsampled, a finite trajectory; wall a frame), then the fault-repair
+     pair (270 frames, black frames 88-92, loop closure on and off: the
+     drift from the first epoch); [bench] the port's bench
+     (`maveric_slam_tpu_torch.bench`: headline.py's modes, suite.py's five
+     one-card measurements, profile.py's roofline) at its smallest rounds
+     (the engine at its full 80 frames, which it needs to close a loop),
+     its validity checks passing (the engine's loop closed), every number
+     finite and positive, and every device-busy time given by the profiler;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -234,6 +251,28 @@ MESH_SLAM_ALIGNED_BAR, MESH_SLAM_ATE_BAR = 2.32, 0.0898
 MESH_ELASTIC_RANKS, MESH_ELASTIC_FRAMES, MESH_ELASTIC_EVERY = 2, 16, 4
 MESH_ELASTIC_FAULTS = (("crash", 0, 1, 7), ("hang", 1, 0, 10))
 SURFACE_GAP = 1e-2  # [surface]: (s1 - |s2|) / s0 below this leaves t, and so the pair, ill-determined
+# [degenerate]: tests/test_degenerate.py's tracker sequences on orbit frames
+# 0-2 (that test reads KITTI frames 160-162, which the repository does not
+# hold): frames 0, 1, a black frame, 1, 2; and frame 0 four times. The RANSAC
+# noise comes from a host generator seeded DEGENERATE_SEED, the same on the
+# card and the CPU.
+DEGENERATE_SEED = 4
+# [long]: tests/test_long_sequence.py on the first LONG_IMAGES orbit frames
+# ping-ponged (that test ping-pongs KITTI frames 160-169): its structural run
+# (a 24-slot LCD ring, a 12-frame gap, min_score 0.3, 32 pose-graph nodes,
+# no BA, 520 frames) and its fault-repair pair (128 slots, 270 frames, loop
+# closure on and off, black frames 88-92 around the turnaround, image noise
+# sigma 0.02 from seed 42).
+LONG_IMAGES = 10
+LONG_FRAMES, LONG_RING, LONG_GAP, LONG_MIN_SCORE, LONG_NODES = 520, 24, 12, 0.3, 32
+LONG_REPAIR_FRAMES, LONG_REPAIR_RING, LONG_BLACK = 270, 128, (88, 89, 90, 91, 92)
+# Loop pairs of the structural run may show images this far apart. The test's
+# bar is 1 on KITTI, whose frames are ~1 m apart; on the orbit a turn takes
+# 192 frames, so frames a few apart still share most of the view: the JAX
+# package's engine on these frames pairs images up to 3 apart (126 pairs:
+# 117 at 0, 1 at 1, 5 at 2, 3 at 3; `python tools/torch_smoke_vs_jax.py
+# long`), so the bar is its figure, 3 (ROADMAP Faults (r)).
+LONG_IMAGE_GAP = 3
 
 
 def _log(*a):
@@ -2898,6 +2937,301 @@ def phase_surface(cfg, frames, pw_inp):
     _require(all(ok for ok, _ in checks), "surface: " + "; ".join(w for ok, w in checks if not ok))
 
 
+def degenerate_sequences(frames):
+    """tests/test_degenerate.py's two tracker sequences on three frames:
+    {name: [first frame, the frame of each step]}."""
+    black = np.zeros_like(frames[0])
+    return {"black": [frames[0], frames[1], black, frames[1], frames[2]],
+            "repeated": [frames[0]] * 4}
+
+
+def phase_degenerate(cfg, frames):
+    """tests/test_degenerate.py's tracker cases through `Tracker` at 192x640
+    on the card, each sequence with its own launch counts (set to 0 before
+    it, read after each step): real -> black gives a step that is not valid,
+    the previous step's R and t (atol 1e-6) and no match; black -> real stays
+    not valid; real -> real recovers with > 20 inliers; three repeats of a
+    frame stay finite. Every kernel launches on the black frame (the stem on
+    an all-zero image, top-N with no cell selected). The same sequences and
+    noise through the port on the CPU: the valid flags equal, and each
+    fallback pose (a step that is not valid) within the [cpu-vs-card] bar of
+    1 deg of the CPU's (Faults (g)). A repeated frame's own pose is not
+    compared: a pair without baseline leaves the translation, and so the
+    chosen decomposition, undetermined."""
+    from maveric_slam_tpu_torch.frontend.tracker import Tracker
+    from maveric_slam_tpu_torch.geometry import ransac
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+
+    m, k = cfg.frontend.top_n, cfg.ransac.num_hypotheses
+    gen = torch.Generator().manual_seed(DEGENERATE_SEED)
+    noise = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
+             for _ in range(4)]
+    per_step = {"fused_stem": 1, "detector_postproc": 1, "windowed_match": 1,
+                "nullspace_inverse_iteration": 4, "svd3": 3}
+
+    def run(dev, seq):
+        tr = Tracker(sp.load_params(device=dev), cfg, device=dev)
+        steps = []
+        _sync()
+        kernels.reset_launch_counts()
+        tr.process(seq[0])
+        for f, (gmin, glo) in zip(seq[1:], noise):
+            before = kernels.launch_counts()
+            s = tr.process(f, gmin.to(dev), glo.to(dev))
+            _sync()
+            after = kernels.launch_counts()
+            steps.append({
+                "R": s.R.cpu().numpy(), "t": s.t.cpu().numpy(), "matched": bool(s.match_mask.any()),
+                "finite": all(bool(torch.isfinite(x).all()) for x in s if x.is_floating_point())
+                and bool(torch.isfinite(tr.state.scale)),
+                "launches": {n: after[n] - before[n] for n in after}, **tr.stats[-1]})
+        return steps, kernels.launch_counts()
+
+    checks = []
+    for name, seq in degenerate_sequences(frames).items():
+        card, launches = run(torch.device("cuda"), seq)
+        cpu, _ = run(torch.device("cpu"), seq)
+        want = {n: c * (len(seq) - 1) for n, c in per_step.items()}
+        want.update(fused_stem=len(seq), detector_postproc=len(seq))
+        for j, (g, c) in enumerate(zip(card, cpu)):
+            _log(f"[degenerate] {name} step {j}: valid {g['valid']}/{c['valid']} (card/CPU), matches "
+                 f"{g['matches']}/{c['matches']}, inliers {g['inliers']}/{c['inliers']}, finite "
+                 f"{g['finite']}, rot diff {_rot_deg(g['R'], c['R']):.4f} deg, max |dt| "
+                 f"{np.abs(g['t'] - c['t']).max():.3g}; launches {json.dumps(g['launches'])}")
+        _log(f"[degenerate] {name}: kernels {json.dumps(launches)} (expected {json.dumps(want)})")
+        checks += [
+            (launches == want, f"{name}: launches {launches}, expected {want}"),
+            (all(g["finite"] for g in card), f"{name}: a step is not finite"),
+            ([g["valid"] for g in card] == [c["valid"] for c in cpu], f"{name}: valid flags differ"),
+            (all(_rot_deg(g["R"], c["R"]) < 1.0 for g, c in zip(card, cpu) if not c["valid"]),
+             f"{name}: card and CPU fallback rotations differ by 1 deg or more"),
+        ]
+        if name == "black":
+            s0, s1, s2, s3 = card
+            checks += [
+                (s1["launches"] == per_step, f"black frame launched {s1['launches']}"),
+                (s0["valid"] and not s1["valid"] and not s2["valid"] and s3["valid"],
+                 f"valid flags {[s['valid'] for s in card]}"),
+                (np.abs(s1["R"] - s0["R"]).max() <= 1e-6 and np.abs(s1["t"] - s0["t"]).max() <= 1e-6,
+                 "the black frame's pose is not the previous step's"),
+                (not s1["matched"], "the black frame matched"),
+                (s3["inliers"] > 20, f"recovered with {s3['inliers']} inliers"),
+            ]
+    _require(all(ok for ok, _ in checks), "degenerate: " + "; ".join(w for ok, w in checks if not ok))
+
+
+def img_of(frame, images=LONG_IMAGES):
+    """The image shown at a ping-pong frame (tests/test_long_sequence.py:31)."""
+    from maveric_slam_tpu_torch.bench.common import ping_pong
+
+    return ping_pong(frame, images)
+
+
+def long_config(cfg, ring, nodes=LONG_NODES):
+    """tests/test_long_sequence.py's loop-closure settings on `cfg`."""
+    return dataclasses.replace(cfg, loop=dataclasses.replace(
+        cfg.loop, max_db_frames=ring, min_frame_gap=LONG_GAP, min_score=LONG_MIN_SCORE,
+        max_graph_nodes=nodes))
+
+
+def record_skeletons(slam):
+    """The engine with each pose-graph node set kept in `slam.skeletons`:
+    (matched frame, current frame, nodes, whether the stride subsampled
+    them). Works on either package's SlamSystem."""
+    slam.skeletons = []
+    nodes_of = slam._skeleton_nodes
+
+    def keep(matched, cur):
+        nodes = nodes_of(matched, cur)
+        ends = {f for e in slam.loop_edges for f in e[:2]} | {0, matched, cur}
+        every = sorted(f for f in set(slam.kf_frames) | ends if f < len(slam.poses))
+        slam.skeletons.append((matched, cur, nodes, nodes != every))
+        return nodes
+
+    slam._skeleton_nodes = keep
+    return slam
+
+
+def long_checks(slam, n_frames, cfg, image_gap=LONG_IMAGE_GAP):
+    """tests/test_long_sequence.py:60-96 on an engine that has run
+    `n_frames` ping-pong frames, scaled to its ring: [(ok, what)]. Works on
+    either package's SlamSystem."""
+    ring, kc = cfg.loop.max_db_frames, cfg.keyframe
+    stored = sorted(e["frame"] for e in slam.kf_store if e is not None)
+    db = slam.db.frames
+    db = set((db.cpu().numpy() if isinstance(db, torch.Tensor) else np.asarray(db)).tolist())
+    n_kf = len(slam.kf_frames)
+    wrap = ring * kc.max_interval  # frames until the ring first wraps
+    pairs = [(e.frame, e.matched_frame) for e in slam.loop_events]
+    traj = slam.trajectory()
+    return [
+        (len(slam.kf_store) == ring == len(stored), f"{len(stored)} of {len(slam.kf_store)} slots filled "
+                                                    f"(ring {ring})"),
+        (slam.db.multihot.shape[0] == ring, f"a database of {slam.db.multihot.shape[0]} rows"),
+        (n_frames // kc.max_interval - 1 <= n_kf <= n_frames // kc.min_interval,
+         f"{n_kf} keyframes (cadence bounds {n_frames // kc.max_interval - 1}.."
+         f"{n_frames // kc.min_interval})"),
+        (n_kf > 3 * ring, f"{n_kf} keyframes: {n_kf / ring:.2f} turns of the ring (at least 3)"),
+        (len(slam.tracks.observations) <= 4 * cfg.frontend.num_cells,
+         f"{len(slam.tracks.observations)} tracks (at most {4 * cfg.frontend.num_cells})"),
+        (stored[0] >= n_frames - wrap - 1, f"oldest stored keyframe {stored[0]} (at least "
+                                           f"{n_frames - wrap - 1})"),
+        (db == set(stored), f"the database's frames are the store's: {db == set(stored)}"),
+        (bool(pairs), f"{len(pairs)} loop closures"),
+        (any(f > 3 * wrap for f, _ in pairs),
+         f"{sum(f > 3 * wrap for f, _ in pairs)} loop closures after frame {3 * wrap}"),
+        (all(abs(img_of(f) - img_of(m)) <= image_gap for f, m in pairs),
+         f"loop pairs' images at most {max((abs(img_of(f) - img_of(m)) for f, m in pairs), default=0)} "
+         f"apart (bar {image_gap})"),
+        (all(f - m >= cfg.loop.min_frame_gap for f, m in pairs),
+         f"loop pairs at least {min((f - m for f, m in pairs), default=0)} frames apart (bar "
+         f"{cfg.loop.min_frame_gap})"),
+        (traj.shape == (n_frames, 4, 4) and bool(np.isfinite(traj).all()),
+         f"trajectory {traj.shape}, finite {bool(np.isfinite(traj).all())}"),
+    ]
+
+
+def repair_stream(images, n=LONG_REPAIR_FRAMES, black=LONG_BLACK, seed=42):
+    """tests/test_long_sequence.py:114-126: the ping-pong frames with noise,
+    the `black` frames replaced by a flat 0.02."""
+    rng = np.random.default_rng(seed)
+    out = [np.clip(images[img_of(f)] + rng.normal(0, 0.02, images[0].shape).astype(np.float32), 0, 1
+                   ).astype(np.float32) for f in range(n)]
+    for g in black:
+        out[g] = np.zeros_like(out[g]) + 0.02
+    return out
+
+
+def epoch_drift(P):
+    """Distance of each late mid-corridor frame's position from its
+    first-epoch twin's (tests/test_long_sequence.py:152)."""
+    period = 2 * (LONG_IMAGES - 1)
+    return np.array([np.linalg.norm(P[f] - P[f % period]) for f in range(160, len(P))
+                     if 3 <= img_of(f) <= 7])
+
+
+def phase_long(cfg, renders):
+    """tests/test_long_sequence.py on the card at 192x640 over the first
+    LONG_IMAGES orbit frames ping-ponged, each engine drawing its own noise:
+    the structural run (LONG_FRAMES frames, a LONG_RING-slot ring) with
+    every check of `long_checks`, the pose graph's node set subsampled at
+    least once, every kernel launched; median and p90 wall a frame, loop
+    closures after the ring's first wrap. Then the fault-repair pair: with
+    loop closure the late frames' drift from their first-epoch twins below
+    0.8 of the odometry's on average, and at most 1.5 m above its largest."""
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops import kernels
+    from maveric_slam_tpu_torch.slam import SlamSystem
+
+    cuda = torch.device("cuda")
+    params = sp.load_params(device=cuda)
+    images = [renders[k] for k in range(LONG_IMAGES)]
+    lcfg = long_config(cfg, LONG_RING)
+    slam = record_skeletons(SlamSystem(params, lcfg, ba_every=0, enable_loop_closure=True, device=cuda))
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    wall = []
+    for f in range(LONG_FRAMES):
+        t0 = time.perf_counter()
+        slam.process(images[img_of(f)])
+        torch.cuda.synchronize()
+        wall.append(time.perf_counter() - t0)
+    checks = long_checks(slam, LONG_FRAMES, lcfg)
+    launches = kernels.launch_counts()
+    wrap = LONG_RING * lcfg.keyframe.max_interval
+    pairs = [(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events]
+    strided = [len(nodes) for *_, nodes, s in slam.skeletons if s]
+    w = np.array(wall[1:]) * 1e3
+    _log(f"[long] {LONG_FRAMES} frames, ring {LONG_RING}: {len(slam.kf_frames)} keyframes, "
+         f"{sum(s['valid'] for s in slam.stats)}/{len(slam.stats)} valid; wall a frame median "
+         f"{np.median(w):.3f} ms, p90 {np.percentile(w, 90):.3f} ms; {len(pairs)} loop closures, "
+         f"{sum(f > wrap for f, _, _ in pairs)} after the ring's first wrap (frame {wrap}); pose graph "
+         f"{len(slam.skeletons)} solves, {len(strided)} on a subsampled node set (sizes {strided})")
+    _log(f"[long] loop closures (frame, matched, inliers), images: "
+         f"{[(p, img_of(p[0]), img_of(p[1])) for p in pairs]}")
+    _log(f"[long] kernels {json.dumps(launches)}")
+    checks += [(bool(strided), f"{len(strided)} pose-graph solves on a subsampled node set"),
+               (all(v > 0 for v in launches.values()), f"launches {launches}")]
+    for ok, what in checks:
+        _log(f"[long] {'holds' if ok else 'FAILS'}: {what}")
+    _require(all(ok for ok, _ in checks), "long: " + "; ".join(w for ok, w in checks if not ok))
+
+    stream = repair_stream(images)
+    rcfg = long_config(cfg, LONG_REPAIR_RING)
+    P = {}
+    for lc in (True, False):
+        s = SlamSystem(params, rcfg, ba_every=0, enable_loop_closure=lc, device=cuda)
+        for f in stream:
+            s.process(f)
+        P[lc] = s.trajectory()[:, :3, 3]
+        if lc:
+            _log(f"[long] repair, loop closure on: {len(s.loop_events)} closures "
+                 f"{[(e.frame, e.matched_frame) for e in s.loop_events]}")
+    d_on, d_off = epoch_drift(P[True]), epoch_drift(P[False])
+    _log(f"[long] repair over {LONG_REPAIR_FRAMES} frames, black {LONG_BLACK}: drift from the first "
+         f"epoch mean {d_on.mean():.4f} m with loop closure, {d_off.mean():.4f} m without (ratio "
+         f"{d_on.mean() / d_off.mean():.4f}, bar 0.8); max {d_on.max():.4f} / {d_off.max():.4f} m "
+         f"(bar +1.5)")
+    _require(bool(np.isfinite(d_on).all() and np.isfinite(d_off).all()), "repair: drift not finite")
+    _require(d_on.mean() < 0.8 * d_off.mean() and d_on.max() < d_off.max() + 1.5,
+             f"repair: drift {d_on.mean()} / {d_off.mean()}, max {d_on.max()} / {d_off.max()}")
+
+
+def _numbers(x, path=""):
+    """(path, number) of every number in a nest of dicts and lists."""
+    if isinstance(x, dict):
+        for k, v in x.items():
+            yield from _numbers(v, f"{path}.{k}")
+    elif isinstance(x, list):
+        for k, v in enumerate(x):
+            yield from _numbers(v, f"{path}[{k}]")
+    elif isinstance(x, (int, float)) and not isinstance(x, bool):
+        yield path, x
+
+
+def phase_bench():
+    """The port's bench (`maveric_slam_tpu_torch.bench`) at its smallest
+    rounds: headline.py's modes (one stream, 16 and 32 streams, chunks of
+    8, the CPU baseline), suite.py's five one-card measurements and
+    profile.py's roofline. Each mode's own validity checks must pass (the
+    engine must close a loop, so it keeps its 80 frames), every number it
+    reports must be finite and positive, and the profiler must give every
+    device-busy time (the engine's, each roofline layer's). The full bench
+    runs alone: `python -m maveric_slam_tpu_torch.bench.<module>`."""
+    from maveric_slam_tpu_torch.bench import headline, profile, suite
+
+    cuda = torch.device("cuda")
+    out = {}
+    for name, fn in (
+            ("headline", lambda: headline.run(cuda, rounds=8, batched_rounds=4, chunks=2,
+                                              baseline_iters=2)),
+            ("suite", lambda: suite.run(cuda, multi_rank=False, pairwise_iters=3, rounds=8, ba_calls=2)),
+            ("roofline", lambda: profile.roofline(cuda, iters=20))):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        _log(f"[bench] {name}: {time.perf_counter() - t0:.1f} s")
+    h = out["headline"]
+    _log(f"[bench] headline: {h['value']:.2f} frames/s one stream, {h['aggregate_fps_16_streams']:.2f} / "
+         f"{h['aggregate_fps_32_streams']:.2f} at 16 / 32 streams, {h['chunked_fps_k8']:.2f} in chunks "
+         f"of 8, mfu {h['mfu']:.5f}, vs_baseline {h['vs_baseline']:.3f}; checks {json.dumps(h['checks'])}")
+    for r in out["suite"]["results"]:
+        _log(f"[bench] suite {r['metric']}: {r['value']:.4f} {r['unit']}")
+    for r in out["roofline"]["rows"]:
+        _log(f"[bench] roofline {r['layer']}: {r['ms']:.5f} ms a call, device busy "
+             f"{r['device_busy_ms']} ms ({r['kernels']} kernels), {r['tflops']:.3f} TFLOP/s a call, "
+             f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
+    bad = [(p, v) for p, v in _numbers(out) if not (np.isfinite(v) and v > 0)]
+    _require(not bad, f"bench numbers not finite and positive: {bad}")
+    engine = out["suite"]["results"][2]
+    _log(f"[bench] suite engine: {json.dumps(engine['checks'])}; device busy "
+         f"{engine['slam_device_busy_ms']} ms a frame, loop verification + pose graph "
+         f"{engine['slam_loop_ms']:.3f} ms a frame")
+    busy = [engine["slam_device_busy_ms"], out["roofline"]["net_device_busy_ms"]] + [
+        r["device_busy_ms"] for r in out["roofline"]["rows"]]
+    _require(None not in busy, f"a device-busy time the profiler did not give: {busy}")
+
+
 def _phased(label, phase, *args):
     """Run one phase and log its wall time (the script's time budget)."""
     t0 = time.perf_counter()
@@ -2996,6 +3330,9 @@ def main():
     _phased("mesh-nccl", phase_mesh_nccl, cfg, slam_run, comp, scene, mesh_ref)
     _phased("mesh-elastic", phase_mesh_elastic, cfg, frames)
     _phased("surface", phase_surface, cfg, frames, pw_inp)
+    _phased("degenerate", phase_degenerate, cfg, frames[:3])
+    _phased("long", phase_long, cfg, renders)
+    _phased("bench", phase_bench)
     single_ms = float(np.median(times[WARMUP_STEPS:]) * 1e3)
     batched_ms = float(np.median(b_times[1:]) * 1e3)
     _log(f"[timing] single-stream step median {single_ms:.3f} ms = {1e3 / single_ms:.2f} frames/s")

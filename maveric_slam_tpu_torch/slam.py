@@ -716,17 +716,22 @@ class SlamSystem:
             if not np.isfinite(t_scale):
                 t_scale = guess_norm
             t_scale = min(t_scale, guess_norm + 5.0 * step_scale)
-            # Observability bound: translation-induced flow is at most the
-            # total flow, so the baseline cannot exceed roughly
-            # flow_px * depth / f; a near-zero-flow revisit pins the edge's
-            # translation near zero, its ground truth.
-            K = self.config.working_camera.K
-            med_depth = float(np.median(entry["depth"][good]))
-            t_scale = min(t_scale, 1.5 * flow_med_px * med_depth / float(K[0, 0]) + 0.05)
+            depths = entry["depth"][good]
         else:
             # Fallback: the magnitude of the current estimate (drift and all),
             # better than dropping the rotation constraint.
             t_scale = guess_norm
+            depths = entry["depth"][entry["depth_ok"] & (entry["depth"] > 0.1)]
+        # Observability bound: translation-induced flow is at most the total
+        # flow, so the baseline cannot exceed roughly flow_px * depth / f; a
+        # near-zero-flow revisit pins the edge's translation near zero, its
+        # ground truth. The JAX package bounds only the depth-ratio branch. On
+        # a pixel-identical revisit the unit depths are noise and rounding
+        # picks the branch, so the unbounded fallback there turned drift into
+        # multi-meter edges (ROADMAP Faults (l)): both branches are bounded.
+        if depths.size:
+            K = self.config.working_camera.K
+            t_scale = min(t_scale, 1.5 * flow_med_px * float(np.median(depths)) / float(K[0, 0]) + 0.05)
         t_lc = t_dir * t_scale
         R_m_lc = R_lc.T
         t_m_lc = -R_lc.T @ t_lc

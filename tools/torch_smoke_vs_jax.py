@@ -5,6 +5,7 @@ from.
     JAX_PLATFORMS=cpu python tools/torch_smoke_vs_jax.py [stream0] [pairwise] [ba] [pose-graph]
         [slam [--size 96x320|192x640] [--frames N] [--fetch-delay D] [--eager] [--port]
          [--port-ba] [--jax-order]] [tracker [--seeds N]] [steps [--frames N] [--jax-features] [--eager]] [checkpoint [--fetch-delay D]]
+        [degenerate] [long [--frames N]] [synthetic [--seeds N]] [loop-edges [--seeds N]]
 
 - stream0: chip_smoke.py's batched stream 0 (orbit frames 0-5 at 192x640,
   RANSAC noise from torch.Generator().manual_seed(1) for all 16 streams)
@@ -52,6 +53,31 @@ from.
   6 and resumed into a fresh engine over frames 7-12, against its unbroken
   run: what the save keeps of the frames still in flight; then the port's
   `save` at the same point.
+
+- degenerate: chip_smoke.py's [degenerate] sequences (orbit frames 0-2 at
+  192x640 with a black frame, and frame 0 repeated) through JAX's jitted
+  `track_step` with the phase's noise: each step's valid flag, counts,
+  finiteness and the black frame's fallback against the step before it.
+- long: chip_smoke.py's [long] phase through the JAX SlamSystem (jit, its
+  own noise) at 192x640: the structural run (--frames N of its 520) with
+  `chip_smoke.long_checks`, the loop pairs' image gaps and the pose graph's
+  subsampled solves; then the fault-repair pair and its drift figures. The
+  source of any [long] bar that departs from tests/test_long_sequence.py's.
+- synthetic: the JAX SlamSystem over tests/test_torch_slam.py's 125-frame
+  96x320 closing orbit for seeds 0 .. --seeds N - 1, seed s drawing its
+  tracking noise from PRNGKey(s) (the engine itself always starts its
+  tracker at PRNGKey(0)) and its loop verifications from PRNGKey(s) (the
+  engine's seed): the full engine's and the odometry's ATE per seed and
+  their distribution, the reference for the port's
+  `maveric_slam_tpu_torch.bench.synthetic_accuracy --seeds N` (ROADMAP
+  Faults (l)). Seed 0 is SYNTH_ACCURACY.json's run.
+
+- loop-edges: both engines (BA off, loop closure on, each its own noise as
+  in `synthetic`) over the 125-frame orbit for seeds 0 .. --seeds N - 1:
+  each accepted loop verification's inliers, how many of them have a unit
+  depth below 1e-3 or above 1e3, the points that can scale the edge (at
+  least 8 or the edge takes the trajectory's own length), and the edge's
+  length (ROADMAP Faults (l)).
 
 JAX's RANSAC draws its noise from a PRNG key; here a stand-in for
 `jax.random` inside its RANSAC module hands it the port's noise instead, so
@@ -548,6 +574,165 @@ def checkpoint(jp, tp, fetch_delay, save_at=6, frames_n=13):
         print(f"[checkpoint] port: save refused ({e})", flush=True)
 
 
+def _jax_engine(jp, cfg, **kw):
+    """A JAX SlamSystem with its vocabulary loaded from the cache."""
+    from maveric_slam_tpu import slam as jslam
+    from maveric_slam_tpu.loopclosure import vocab as jvocab
+    from test_torch_loopclosure import jax_vocabulary
+
+    load = jvocab.load_reference_vocabulary
+    jvocab.load_reference_vocabulary = jax_vocabulary
+    try:
+        return jslam.SlamSystem(jp, cfg, **kw)
+    finally:
+        jvocab.load_reference_vocabulary = load
+
+
+def degenerate(jp):
+    jcfg, tcfg = _jax_config(), smoke._config()
+    orbit = synthetic.orbit_poses(smoke.ORBIT_N)
+    frames = [synthetic.render_box_room(tcfg.working_camera.K, orbit[k], smoke.H, smoke.W) for k in range(3)]
+    m, k = tcfg.frontend.top_n, tcfg.ransac.num_hypotheses
+    gen = torch.Generator().manual_seed(smoke.DEGENERATE_SEED)
+    noise = [(transac.gumbel((k, m), gen, "cpu"), transac.gumbel((transac.lo_hypotheses(k), m), gen, "cpu"))
+             for _ in range(4)]
+    for name, seq in smoke.degenerate_sequences(frames).items():
+        state = jtracker.init_state(jp, jnp.asarray(seq[0]), jcfg, 0)
+        prev = None
+        for j, (f, (gmin, glo)) in enumerate(zip(seq[1:], noise)):
+            _inject(gmin, glo)
+            state, out = jtracker.track_step(jp, state, jnp.asarray(f), jcfg)
+            R, t = np.asarray(out.R), np.asarray(out.t)
+            held = "" if prev is None else (f", R/t the step before's: max |dR| "
+                                            f"{np.abs(R - prev[0]).max():.3g} |dt| {np.abs(t - prev[1]).max():.3g}")
+            print(f"[degenerate] JAX {name} step {j}: valid {bool(out.valid)}, matches "
+                  f"{int(out.num_matches)}, inliers {int(out.num_inliers)}, matched "
+                  f"{bool(np.asarray(out.match_mask).any())}, finite "
+                  f"{bool(np.isfinite(R).all() and np.isfinite(t).all() and np.isfinite(np.asarray(state.scale)))}"
+                  f"{held}", flush=True)
+            prev = (R, t)
+
+
+def long(jp, frames_n):
+    jcfg = _jax_config()
+    tcfg = smoke._config()
+    orbit = synthetic.orbit_poses(smoke.ORBIT_N)
+    images = [synthetic.render_box_room(tcfg.working_camera.K, orbit[k], smoke.H, smoke.W)
+              for k in range(smoke.LONG_IMAGES)]
+    n = frames_n or smoke.LONG_FRAMES
+    lcfg = smoke.long_config(jcfg, smoke.LONG_RING)
+    slam = smoke.record_skeletons(_jax_engine(jp, lcfg, ba_every=0, enable_loop_closure=True))
+    for f in range(n):
+        slam.process(images[smoke.img_of(f)])
+    slam.close()
+    pairs = [(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events]
+    wrap = smoke.LONG_RING * lcfg.keyframe.max_interval
+    gaps = [abs(smoke.img_of(f) - smoke.img_of(m)) for f, m, _ in pairs]
+    print(f"[long] JAX, {n} frames, ring {smoke.LONG_RING}: {len(slam.kf_frames)} keyframes, valid "
+          f"{sum(s['valid'] for s in slam.stats)}/{len(slam.stats)}; {len(pairs)} loop closures, "
+          f"{sum(f > wrap for f, _, _ in pairs)} after frame {wrap}, {sum(f > 3 * wrap for f, _, _ in pairs)} "
+          f"after frame {3 * wrap}; image gaps of the pairs: largest {max(gaps, default=None)}, counts "
+          f"{dict(sorted((g, gaps.count(g)) for g in set(gaps)))}; pose graph {len(slam.skeletons)} solves, "
+          f"{sum(s for *_, s in slam.skeletons)} subsampled", flush=True)
+    print(f"[long] JAX loop closures (frame, matched, inliers): {pairs}", flush=True)
+    for ok, what in smoke.long_checks(slam, n, lcfg, image_gap=max(gaps, default=1)):
+        print(f"[long] JAX check {'holds' if ok else 'FAILS'}: {what}", flush=True)
+    stream = smoke.repair_stream(images)
+    rcfg = smoke.long_config(jcfg, smoke.LONG_REPAIR_RING)
+    P = {}
+    for lc in (True, False):
+        s = _jax_engine(jp, rcfg, ba_every=0, enable_loop_closure=lc)
+        for f in stream:
+            s.process(f)
+        P[lc] = s.trajectory()[:, :3, 3]
+        s.close()
+    d_on, d_off = smoke.epoch_drift(P[True]), smoke.epoch_drift(P[False])
+    print(f"[long] JAX repair: drift mean {d_on.mean():.4f} m with loop closure, {d_off.mean():.4f} m "
+          f"without (ratio {d_on.mean() / d_off.mean():.4f}); max {d_on.max():.4f} / {d_off.max():.4f} m "
+          f"(difference {d_on.max() - d_off.max():.4f})", flush=True)
+
+
+def synthetic_seeds(jp, seeds):
+    import test_torch_slam as ts
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    frames, gt = ts.orbit(ts.N_ORBIT)
+    rows = []
+    for seed in range(seeds):
+        slam = _jax_engine(jp, ts.JCFG, seed=seed, ba_every=4, enable_loop_closure=True)
+        slam.process(frames[0])
+        slam.state = slam.state._replace(key=jax.random.PRNGKey(seed))
+        for f in frames[1:]:
+            slam.process(f)
+        full = evaluation.ate(slam.trajectory(), gt)["ate_rmse"]
+        odo = evaluation.ate(slam.odometry_trajectory(), gt)["ate_rmse"]
+        slam.close()
+        rows.append((full, odo))
+        print(f"[synthetic] JAX seed {seed}: ATE full {full:.4f} m, odometry {odo:.4f} m; loop closures "
+              f"{[(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events]}", flush=True)
+    full = np.array([r[0] for r in rows])
+    odo = np.array([r[1] for r in rows])
+    for name, a in (("full", full), ("odometry", odo)):
+        print(f"[synthetic] JAX over {seeds} seeds, ATE {name}: median {np.median(a):.4f} m, quartiles "
+              f"{np.percentile(a, 25):.4f} / {np.percentile(a, 75):.4f}, min {a.min():.4f}, max "
+              f"{a.max():.4f}; all {' '.join(f'{v:.4f}' for v in a)}", flush=True)
+    print(f"[synthetic] JAX: full below 0.85 x odometry on {int((full < 0.85 * odo).sum())} of {seeds} "
+          f"seeds", flush=True)
+
+
+def loop_edges(jp, tp, seeds):
+    import test_torch_slam as ts
+    from maveric_slam_tpu import slam as jslam
+    from maveric_slam_tpu_torch import slam as tslam
+
+    frames, _ = ts.orbit(ts.N_ORBIT)
+    n = ts.TCFG.frontend.top_n
+    verify = jslam._verify_loop_device
+    last = {}
+
+    def keep_jax(*a, **k):
+        last["out"] = np.asarray(verify(*a, **k))
+        return last["out"]
+
+    jslam._verify_loop_device = keep_jax
+    try:
+        for seed in range(seeds):
+            for name in ("JAX", "port"):
+                if name == "JAX":
+                    s = _jax_engine(jp, ts.JCFG, seed=seed, ba_every=0, enable_loop_closure=True)
+                else:
+                    s = tslam.SlamSystem(tp, ts.TCFG, seed=seed, ba_every=0, enable_loop_closure=True,
+                                         device="cpu")
+
+                    def keep_port(flat, verify_port=s._verify_loop):
+                        last["out"] = verify_port(flat)
+                        return last["out"]
+
+                    s._verify_loop = keep_port
+                close = s._verify_and_close_loop
+
+                def closed(entry, cur_entry, cur, score, s=s, close=close, name=name):
+                    ev = close(entry, cur_entry, cur, score)
+                    if ev is not None:
+                        out = last["out"]
+                        inl, z = out[14:14 + n] > 0.5, out[14 + n:14 + 2 * n]
+                        good = inl & entry["depth_ok"] & (z > 1e-3) & (z < 1e3) & (entry["depth"] > 0.1)
+                        print(f"[loop-edges] {name} seed {seed} ({entry['frame']}, {cur}): inliers "
+                              f"{int(inl.sum())}, unit depth <= 1e-3 {int((inl & (z <= 1e-3)).sum())}, "
+                              f">= 1e3 {int((inl & (z >= 1e3)).sum())}, scaling points {int(good.sum())}, "
+                              f"edge {np.linalg.norm(s.loop_edges[-1][3]):.3f} m", flush=True)
+                    return ev
+
+                s._verify_and_close_loop = closed
+                s.process(frames[0])
+                if name == "JAX":
+                    s.state = s.state._replace(key=jax.random.PRNGKey(seed))
+                for f in frames[1:]:
+                    s.process(f)
+    finally:
+        jslam._verify_loop_device = verify
+
+
 def main():
     import argparse
 
@@ -563,7 +748,8 @@ def main():
     ap.add_argument("--jax-features", action="store_true")
     ap.add_argument("--seeds", type=int, default=1)
     args = ap.parse_args()
-    jp, tp = (_params() if {"stream0", "pairwise", "slam", "tracker", "steps", "checkpoint"}
+    jp, tp = (_params() if {"stream0", "pairwise", "slam", "tracker", "steps", "checkpoint", "degenerate",
+                            "long", "synthetic", "loop-edges"}
               & set(args.what)
               else (None, None))
     for w in args.what:
@@ -573,7 +759,10 @@ def main():
                               args.port, args.port_ba, args.jax_order),
          "tracker": lambda: tracker(jp, tp, args.seeds),
          "steps": lambda: steps(jp, tp, args.frames, args.jax_features, args.eager),
-         "checkpoint": lambda: checkpoint(jp, tp, args.fetch_delay or 3)}[w]()
+         "checkpoint": lambda: checkpoint(jp, tp, args.fetch_delay or 3),
+         "degenerate": lambda: degenerate(jp), "long": lambda: long(jp, args.frames),
+         "synthetic": lambda: synthetic_seeds(jp, args.seeds),
+         "loop-edges": lambda: loop_edges(jp, tp, args.seeds)}[w]()
 
 
 if __name__ == "__main__":
