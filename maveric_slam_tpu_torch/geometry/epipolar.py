@@ -90,20 +90,26 @@ def triangulate(R, t, p1, p2, method: str = "midpoint") -> torch.Tensor:
 
 
 def _triangulate_midpoint(R, t, p1, p2) -> torch.Tensor:
+    """The midpoint of the closest points s a and c2 + u b of the two rays.
+    The JAX package solves the 2x2 normal equations as written, with
+    determinant |a|^2 |b|^2 - (a.b)^2, which cancels between near-parallel
+    rays: its rounding error grows as eps / sin^2(parallax), and two devices
+    that round a dot product differently place such a point meters apart
+    (ROADMAP Faults (g)). The same determinant and numerators are computed
+    here as products of cross products (the Lagrange and Binet-Cauchy
+    identities: |a x b|^2, (c2 x b).(a x b), (c2 x a).(a x b)), whose
+    error grows only as eps / sin(parallax)."""
     a = torch.cat([p1, torch.ones_like(p1[..., :1])], dim=-1)
     d2 = torch.cat([p2, torch.ones_like(p2[..., :1])], dim=-1)
     Rt = R.transpose(-1, -2)
     b = apply_rows(d2, Rt)  # R^T [p2;1] per row
     c2 = -apply_rows(t[..., None, :], Rt)  # (..., 1, 3): -R^T t
-    aa = torch.sum(a * a, dim=-1)
-    bb = torch.sum(b * b, dim=-1)
-    ab = torch.sum(a * b, dim=-1)
-    ac = torch.sum(a * c2, dim=-1)
-    bc = torch.sum(b * c2, dim=-1)
-    den = aa * bb - ab * ab
-    den = torch.where(torch.abs(den) < 1e-12, 1e-12, den)
-    s = (ac * bb - bc * ab) / den
-    u = (ac * ab - bc * aa) / den
+    a, b, c2 = torch.broadcast_tensors(a, b, c2)
+    n = torch.linalg.cross(a, b)
+    den = torch.sum(n * n, dim=-1)
+    den = torch.where(den < 1e-12, 1e-12, den)
+    s = torch.sum(torch.linalg.cross(c2, b) * n, dim=-1) / den
+    u = torch.sum(torch.linalg.cross(c2, a) * n, dim=-1) / den
     return 0.5 * (s[..., None] * a + c2 + u[..., None] * b)
 
 

@@ -1,17 +1,19 @@
 """Batched LO-RANSAC for the essential matrix (port of
 maveric_slam_tpu/geometry/ransac.py `ransac_essential`).
 
-All K hypotheses are estimated and scored in one batched pass, then one LO
-pass of non-minimal resamples and score-guarded weighted refits. Nothing
-leaves the device: every choice is a tensor select, so the step issues no
-host synchronisation.
+All K hypotheses are estimated and scored in one batched pass, then
+`lo_rounds` LO passes of non-minimal resamples (one by default) and
+score-guarded weighted refits. Nothing leaves the device: every choice is
+a tensor select, so the step issues no host synchronisation.
 
 Randomness: the JAX package draws each hypothesis's sample as a Gumbel
 top-k from `jax.random`, whose bits PyTorch cannot reproduce. Here the
 Gumbel noise is an input (`gumbel_min` (..., K, M), `gumbel_lo`
-(..., K2, M)); the tracker draws it from each stream's `torch.Generator`,
-and tests feed both packages the same noise. Without it, it is drawn from
-PyTorch's default generator.
+(..., K2, M), or (..., lo_rounds, K2, M) for lo_rounds other than 1: LO
+round r's rows, which JAX draws from fold_in(key, 1 + r)); the tracker
+draws it from each stream's `torch.Generator`, and tests feed both
+packages the same noise. Without it, it is drawn from PyTorch's default
+generator.
 """
 
 from __future__ import annotations
@@ -64,24 +66,28 @@ def ransac_essential(
     num_hypotheses: int = 256,
     sample_size: int = 8,
     refit_schedule: tuple = (16.0, 4.0, 1.0),
+    lo_rounds: int = 1,
     refit_rounds: int = 2,
     gumbel_min: torch.Tensor | None = None,  # (..., num_hypotheses, M)
-    gumbel_lo: torch.Tensor | None = None,  # (..., lo_hypotheses(num_hypotheses), M)
+    gumbel_lo: torch.Tensor | None = None,  # (..., [lo_rounds,] lo_hypotheses(num_hypotheses), M)
 ) -> RansacResult:
     """Batched RANSAC + LO resampling + annealed refit + cheirality pose.
     Leading axes "..." are independent problems (streams), solved together:
-    each linear-algebra stage is one batched call over all of them."""
+    each linear-algebra stage is one batched call over all of them. Each LO
+    round resamples the current best's consensus set and keeps its best
+    only if that improves the MSAC score."""
     lead, m = p1.shape[:-2], p1.shape[-2]
     dev = p1.device
     thresh2 = inlier_thresh**2
     lo_k = lo_hypotheses(num_hypotheses)
+    lo_shape = (*lead, lo_k, m) if lo_rounds == 1 else (*lead, lo_rounds, lo_k, m)
     if gumbel_min is None:
         gumbel_min = gumbel((*lead, num_hypotheses, m), None, dev)
     if gumbel_lo is None:
-        gumbel_lo = gumbel((*lead, lo_k, m), None, dev)
-    if gumbel_min.shape != (*lead, num_hypotheses, m) or gumbel_lo.shape != (*lead, lo_k, m):
+        gumbel_lo = gumbel(lo_shape, None, dev)
+    if gumbel_min.shape != (*lead, num_hypotheses, m) or gumbel_lo.shape != lo_shape:
         raise ValueError(
-            f"Gumbel noise must be {(*lead, num_hypotheses, m)} and {(*lead, lo_k, m)}, got "
+            f"Gumbel noise must be {(*lead, num_hypotheses, m)} and {lo_shape}, got "
             f"{tuple(gumbel_min.shape)} and {tuple(gumbel_lo.shape)}")
     P1, P2 = p1[..., None, :, :], p2[..., None, :, :]  # a hypothesis axis
 
@@ -97,19 +103,22 @@ def ransac_essential(
     E_best = _pick(E, best, 2)
     score_best = _pick(scores, best, 0)
 
-    # LO: 16-point resamples of the best hypothesis's consensus set.
-    d2b = epipolar.sampson_distance(E_best, p1, p2)
-    in_gate = (d2b < 4.0 * thresh2) & mask
-    lo_logits = torch.where(torch.any(in_gate, dim=-1, keepdim=True),
-                            torch.where(in_gate, 0.0, -torch.inf), logits)
-    lo_idx = top_k(lo_logits[..., None, :] + gumbel_lo, 2 * sample_size)[1]
-    E_lo = epipolar.estimate_essential(_sample(p1, lo_idx), _sample(p2, lo_idx))
-    lo_scores = msac_score(epipolar.sampson_distance(E_lo, P1, P2))
-    lo_best = torch.argmin(lo_scores, dim=-1)
-    lo_score = _pick(lo_scores, lo_best, 0)
-    improve = lo_score < score_best
-    E_best = torch.where(improve[..., None, None], _pick(E_lo, lo_best, 2), E_best)
-    score_best = torch.where(improve, lo_score, score_best)
+    # LO: 16-point resamples of the best hypothesis's consensus set, a round
+    # at a time.
+    for r in range(lo_rounds):
+        d2b = epipolar.sampson_distance(E_best, p1, p2)
+        in_gate = (d2b < 4.0 * thresh2) & mask
+        lo_logits = torch.where(torch.any(in_gate, dim=-1, keepdim=True),
+                                torch.where(in_gate, 0.0, -torch.inf), logits)
+        g = gumbel_lo if lo_rounds == 1 else gumbel_lo[..., r, :, :]
+        lo_idx = top_k(lo_logits[..., None, :] + g, 2 * sample_size)[1]
+        E_lo = epipolar.estimate_essential(_sample(p1, lo_idx), _sample(p2, lo_idx))
+        lo_scores = msac_score(epipolar.sampson_distance(E_lo, P1, P2))
+        lo_best = torch.argmin(lo_scores, dim=-1)
+        lo_score = _pick(lo_scores, lo_best, 0)
+        improve = lo_score < score_best
+        E_best = torch.where(improve[..., None, None], _pick(E_lo, lo_best, 2), E_best)
+        score_best = torch.where(improve, lo_score, score_best)
 
     # Score-guarded, Cauchy-weighted refits, every gate width in one solve.
     mults = torch.tensor(refit_schedule, dtype=p1.dtype, device=dev)[:, None]  # (R, 1)

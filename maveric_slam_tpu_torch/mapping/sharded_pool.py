@@ -47,6 +47,12 @@ def observe_batch(pool: DevicePool, word_ids: torch.Tensor, frame_num, mesh: Mes
     return feature_pool.observe_batch(pool, _local_ids(pool, word_ids, mesh), frame_num)
 
 
+def remove_old(pool: DevicePool, current_frame, mesh: Mesh) -> DevicePool:
+    """feature_pool.remove_old on this rank's block: eviction is elementwise
+    over the words, so no communication."""
+    return feature_pool.remove_old(pool, current_frame)
+
+
 def covisibility_weights(pool: DevicePool, word_ids: torch.Tensor, mesh: Mesh) -> torch.Tensor:
     """feature_pool.covisibility_weights over the whole vocabulary, on every
     rank: each rank's counts for the ids it owns, summed."""

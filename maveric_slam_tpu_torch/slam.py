@@ -320,9 +320,10 @@ class SlamSystem:
                                         self.vocab).word_id
             if self.mesh is None:
                 self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
+                self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
             else:
                 self.pool = sharded_pool.observe_batch(self.pool, wa, self.frame_idx, self.mesh)
-            self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
+                self.pool = sharded_pool.remove_old(self.pool, self.frame_idx, self.mesh)
             sightings = (self.pool.num_sightings if self.mesh is None
                          else sharded_pool.gather_sightings(self.pool, self.mesh))
             packed = self._packer.pack(step, wa, sightings)

@@ -11,8 +11,10 @@ Bars: tests/test_parallel.py's. Sharded BA: R atol 1e-4, t atol 1e-3,
 per-iteration cost rtol 1e-3 (the same math, another reduction order);
 on one rank it is the port's single-device `bundle_adjust` bit for bit.
 The LCD ring, the query and the word-sharded pool are exact. The stream-
-sharded step (4 streams, one a rank, JAX's noise injected): rotation
-< 0.05 deg, cos t > 0.99999, inliers within 3. All ranks return the same
+sharded step (`make_stream_mesh`, `track_step_sharded`; 4 streams over 1,
+2 and 4 ranks, JAX's noise injected): rotation < 0.05 deg, cos t > 0.99999,
+inliers within 3, and bitwise the unsharded step. The sharded pool evicts
+through the port's `sharded_pool.remove_old`. All ranks return the same
 bytes.
 """
 
@@ -124,11 +126,10 @@ def _spec(world, stream_inputs):
     if world == 1:
         spec["single_sizes_1"] = ("single_ba", 1, "ldmk",
                                   dict(problem=_ba_problem("sizes_1"), iterations=3))
-    if world == len(STREAM_PHASES):
-        imgs0, imgs1, gmin, glo, _ = stream_inputs
-        spec["tracker"] = ("tracker_step", world, STREAM_AXIS,
-                           dict(config=_config(tconfig), images0=imgs0, images1=imgs1,
-                                gumbel_min=gmin, gumbel_lo=glo))
+    imgs0, imgs1, gmin, glo, _ = stream_inputs
+    spec["tracker"] = ("tracker_step", world, STREAM_AXIS,
+                       dict(config=_config(tconfig), images0=imgs0, images1=imgs1,
+                            gumbel_min=gmin, gumbel_lo=glo))
     return spec
 
 
@@ -246,27 +247,47 @@ def _assert_streams_close(got, want):
     assert d_inl.max() <= 3, d_inl
 
 
-def test_sharded_tracker_matches_jax(ranks, stream_inputs):
-    """The stream-sharded step (one stream a rank) against JAX's
-    stream-sharded step on a 4-device mesh at the bars, and equal to the
-    port's unsharded `track_step_batched` on the same noise (a stream alone
-    is its row of the batch, bit for bit, on the CPU)."""
-    imgs0, imgs1, gmin, glo, want = stream_inputs
-    got = ranks(len(STREAM_PHASES))[0]["tracker"]
-    assert got["valid"].all()
-    _assert_streams_close(got, want._asdict())
+@pytest.fixture(scope="module")
+def unsharded_step(stream_inputs):
+    """The port's `track_step_batched` over the four streams in one process
+    (one thread, as the ranks), the same noise injected."""
+    imgs0, imgs1, gmin, glo, _ = stream_inputs
     tcfg = _config(tconfig)
     params = tsp.load_params(device="cpu")
     threads = torch.get_num_threads()
-    torch.set_num_threads(1)  # as the ranks
+    torch.set_num_threads(1)
     try:
         states = ttracker.init_states_batched(params, torch.from_numpy(imgs0), tcfg)
         _, step = ttracker.track_step_batched(params, states, torch.from_numpy(imgs1), tcfg,
                                               torch.from_numpy(gmin), torch.from_numpy(glo))
     finally:
         torch.set_num_threads(threads)
+    return step
+
+
+def _check_sharded_step(got, want, unsharded):
+    assert got["axes"] == [STREAM_AXIS]
+    assert got["valid"].all()
+    _assert_streams_close(got, want._asdict())
     for f in ("R", "t", "valid", "num_matches", "num_inliers"):
-        np.testing.assert_array_equal(got[f], getattr(step, f).numpy(), f)
+        np.testing.assert_array_equal(got[f], getattr(unsharded, f).numpy(), f)
+
+
+def test_sharded_tracker_matches_jax(ranks, stream_inputs, unsharded_step):
+    """The stream-sharded step (`make_stream_mesh`, `track_step_sharded`;
+    one stream a rank) against JAX's stream-sharded step on a 4-device mesh
+    at the bars, and equal to the port's unsharded `track_step_batched` on
+    the same noise (a stream alone is its row of the batch, bit for bit, on
+    the CPU)."""
+    _check_sharded_step(ranks(len(STREAM_PHASES))[0]["tracker"], stream_inputs[-1], unsharded_step)
+
+
+@pytest.mark.parametrize("world", (1, 2))
+def test_track_step_sharded_at_fewer_ranks(ranks, stream_inputs, unsharded_step, world):
+    """The same step with 4 and 2 streams a rank: the stream mesh over 1
+    and 2 ranks, against JAX's at the bars and bitwise equal to the
+    unsharded step."""
+    _check_sharded_step(ranks(world)[0]["tracker"], stream_inputs[-1], unsharded_step)
 
 
 def test_host_chip_mesh_flattens_in_rank_order(ranks):

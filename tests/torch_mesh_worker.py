@@ -80,7 +80,7 @@ def pool_run(frames, queries, vocab: int, window: int, mesh) -> dict:
     weights = []
     for f, (ids, q) in enumerate(zip(frames, queries)):
         pool = sharded_pool.observe_batch(pool, torch.from_numpy(ids).to(mesh.device), f, mesh)
-        pool = feature_pool.remove_old(pool, f)
+        pool = sharded_pool.remove_old(pool, f, mesh)
         weights.append(_np(sharded_pool.covisibility_weights(pool, torch.from_numpy(q).to(mesh.device),
                                                              mesh)))
     tables = {name: _np(mesh_lib.all_gather(getattr(pool, name), mesh).reshape(-1))
@@ -94,21 +94,23 @@ def pool_run(frames, queries, vocab: int, window: int, mesh) -> dict:
 
 
 def tracker_step(config, images0, images1, gumbel_min, gumbel_lo, mesh) -> dict:
-    """One stream-sharded tracking step from batched states of the first
-    frames (S streams, S / n a rank), the noise injected; the gathered
-    results."""
+    """One step of S streams on the stream mesh over `mesh`'s ranks
+    (`make_stream_mesh`, `track_step_sharded`: S / n streams a rank) from
+    batched states of the first frames, the whole batch's noise injected;
+    the gathered results and the stream mesh's axes."""
     from maveric_slam_tpu_torch.frontend import tracker as trk
     from maveric_slam_tpu_torch.models import superpoint as sp
 
-    params = sharded_tracker.replicate_params(sp.load_params(device="cpu"), mesh)
-    states = trk.init_states_batched(params, torch.from_numpy(images0).to(mesh.device), config)
-    states, images = sharded_tracker.shard_streams(states, torch.from_numpy(images1), mesh)
-    _, step = trk.track_step_batched(
-        params, states, images, config,
-        sharded_tracker.local_streams(torch.from_numpy(gumbel_min), mesh),
-        sharded_tracker.local_streams(torch.from_numpy(gumbel_lo), mesh))
-    full = sharded_tracker.gather_steps(step, mesh)
-    return {f: _np(getattr(full, f)) for f in ("R", "t", "valid", "num_matches", "num_inliers")}
+    smesh = sharded_tracker.make_stream_mesh(mesh.size, device=mesh.device)
+    params = sharded_tracker.replicate_params(sp.load_params(device="cpu"), smesh)
+    states = trk.init_states_batched(params, torch.from_numpy(images0).to(smesh.device), config)
+    states, images = sharded_tracker.shard_streams(states, torch.from_numpy(images1), smesh)
+    _, step = sharded_tracker.track_step_sharded(params, states, images, config,
+                                                 torch.from_numpy(gumbel_min),
+                                                 torch.from_numpy(gumbel_lo))
+    full = sharded_tracker.gather_steps(step, smesh)
+    return {"axes": list(smesh.axis_names),
+            **{f: _np(getattr(full, f)) for f in ("R", "t", "valid", "num_matches", "num_inliers")}}
 
 
 def components(spec: dict, device="cpu") -> dict:

@@ -156,7 +156,7 @@ def main():
     for ranks in (r for r in args.ranks if r):
         t0 = time.perf_counter()
         runs = mesh_lib.spawn(worker.mesh_engine, ranks,
-                              args=(cfg, frames, steps, verifications, None, device),
+                              args=(cfg, frames, steps, verifications, device),
                               device=device,
                               threads=1 if device == "cpu" else None, timeout_s=3000)
         _report(f"mesh of {ranks}", runs[0], ref, gt, time.perf_counter() - t0, args.verbose)

@@ -4,8 +4,9 @@ from.
 
     JAX_PLATFORMS=cpu python tools/torch_smoke_vs_jax.py [stream0] [pairwise] [ba] [pose-graph]
         [slam [--size 96x320|192x640] [--frames N] [--fetch-delay D] [--eager] [--port]
-         [--port-ba] [--jax-order]] [tracker [--seeds N]] [steps [--frames N] [--jax-features] [--eager]] [checkpoint [--fetch-delay D]]
-        [degenerate] [long [--frames N]] [synthetic [--seeds N]] [loop-edges [--seeds N]]
+         [--port-ba] [--jax-order]] [tracker [--seeds N]] [steps [--frames N] [--jax-features] [--eager]]
+        [steps --size 192x640 [--eager]] [checkpoint [--fetch-delay D]] [degenerate] [long [--frames N]]
+        [synthetic [--seeds N]] [loop-edges [--seeds N]] [mesh [--ranks R [R ...]] [--verbose]]
 
 - stream0: chip_smoke.py's batched stream 0 (orbit frames 0-5 at 192x640,
   RANSAC noise from torch.Generator().manual_seed(1) for all 16 streams)
@@ -48,6 +49,12 @@ from.
   the port), so that only the step's tail differs. --eager also runs JAX's
   step with jit disabled from the same state and prints the same gaps
   between JAX's two runs (~15 s a step): the reference's own spread.
+  With --size 192x640 it runs chip_smoke.py's [track] scene instead
+  (orbit frames 0-10 at 192x640 and their noise through `_KeyedRandom`),
+  JAX alone: with --eager, per step the gaps between JAX's jitted step and
+  the same step with jit disabled from the same state, the bar of
+  chip_smoke.py's [cpu-vs-card] tail (`TAIL_SPREAD`, ROADMAP Faults (g);
+  ~1 min in all).
 - checkpoint: the JAX engine at --fetch-delay D (3 unless given) over frames
   0-12 of the 96x320 orbit, saved with its own `checkpoint.save` after frame
   6 and resumed into a fresh engine over frames 7-12, against its unbroken
@@ -79,10 +86,21 @@ from.
   least 8 or the edge takes the trajectory's own length), and the edge's
   length (ROADMAP Faults (l)).
 
+- mesh: JAX's mesh-mode SlamSystem (`parallel/mesh.make_mesh(n)` on 8
+  virtual CPU devices) for each n of --ranks (2 4 8 unless given) over
+  chip_smoke.py's [slam] scene (250 frames at 192x640, BA every 4,
+  fetch_delay 0) with its tracking noise, against JAX's single engine on
+  the same frames and noise: max |dt|, the similarity-aligned RMSE, the
+  ATE, BA windows and loop pairs (per-frame gaps with --verbose; ~4 min in
+  all). The reference for tools/torch_mesh_spread.py's figures of the
+  port (ROADMAP Faults (o)).
+
 JAX's RANSAC draws its noise from a PRNG key; here a stand-in for
 `jax.random` inside its RANSAC module hands it the port's noise instead, so
-that both packages draw the same samples. The noise is a constant of the
-trace, so each call recompiles (about a minute a step at 192x640 on 8 cores).
+that both packages draw the same samples. `_Random` makes the noise a
+constant of the trace, so each call recompiles (about a minute a step at
+192x640 on 8 cores); `_KeyedRandom` looks it up by key at run time (the
+steps at 192x640 and mesh modes).
 """
 
 from __future__ import annotations
@@ -93,6 +111,9 @@ import sys
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 os.environ.setdefault("JAX_PLATFORMS", "cpu")
+if "mesh" in sys.argv[1:]:  # the mesh mode's 8 virtual devices, as tests/conftest.py asks for
+    os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "")
+                               + " --xla_force_host_platform_device_count=8").strip()
 sys.path.insert(0, ROOT)
 sys.path.insert(0, os.path.join(ROOT, "tests"))  # test_torch_slam's engine runners
 
@@ -123,23 +144,74 @@ from maveric_slam_tpu_torch.utils.trajectory import relative_from_poses  # noqa:
 
 class _Random:
     """`jax.random` as JAX's RANSAC uses it, drawing rows of fixed tables:
-    split(key, K) -> rows 0..K-1 of the minimal noise, fold_in then
-    split(., K2) -> rows of the LO noise, gumbel(row) -> that row."""
+    split(key, K) -> rows 0..K-1 of the minimal noise, fold_in(key, 1 + r)
+    then split(., K2) -> rows of LO round r's noise, gumbel(row) -> that row.
+    `glo` is (K2, M) for one LO round or (rounds, K2, M)."""
 
     def __init__(self, gmin, glo):
-        self.table = jnp.asarray(np.concatenate([gmin, glo]))
-        self.k = gmin.shape[0]
+        glo = np.asarray(glo).reshape(-1, *np.shape(glo)[-2:])
+        self.table = jnp.asarray(np.concatenate([np.asarray(gmin), *glo]))
+        self.k, self.lo_k, self.rounds = gmin.shape[0], glo.shape[1], glo.shape[0]
 
     def split(self, key, num=2):
-        if key.ndim == 0:  # the marker fold_in returned
+        if key.ndim == 0:  # a marker fold_in returned
             return key + jnp.arange(num, dtype=jnp.int32)
         return jnp.arange(num, dtype=jnp.int32)
 
     def fold_in(self, key, data):
-        return jnp.asarray(self.k, jnp.int32)
+        if not 1 <= data <= self.rounds:
+            raise ValueError(f"no noise for LO round {data - 1}: {self.rounds} round(s) given")
+        return jnp.asarray(self.k + (data - 1) * self.lo_k, jnp.int32)
 
     def gumbel(self, k, shape):
         return self.table[k]
+
+
+class _KeyedRandom:
+    """`jax.random` as JAX's RANSAC uses it, with each row of noise looked up
+    at run time (a host callback) by the key the caller passed: the rows
+    `register(key, gmin, glo)` gave that key (a tracking step's key), else a
+    row numpy draws from a generator seeded by the key's bits and the row (a
+    loop verification's key). The noise is no constant of the trace, so one
+    compiled program serves every step. Inside, a key is uint32[3]: the
+    caller's two key words and a row (LO round r's rows from (r + 1) << 16)."""
+
+    _LO = 1 << 16
+
+    def __init__(self):
+        self.tables = {}
+        self.served = {"registered": 0, "drawn": 0}
+
+    def register(self, key, gmin, glo):
+        glo = np.asarray(glo).reshape(-1, *np.shape(glo)[-2:])
+        self.tables[tuple(int(x) for x in np.asarray(key))] = (np.asarray(gmin, np.float32),
+                                                               glo.astype(np.float32))
+
+    def split(self, key, num=2):
+        bits, base = (key[:2], key[2]) if key.shape[-1] == 3 else (key, jnp.uint32(0))
+        rows = base + jnp.arange(num, dtype=jnp.uint32)
+        return jnp.concatenate([jnp.broadcast_to(bits.astype(jnp.uint32), (num, 2)), rows[:, None]], 1)
+
+    def fold_in(self, key, data):
+        return jnp.concatenate([key.astype(jnp.uint32), jnp.full((1,), data * self._LO, jnp.uint32)])
+
+    def _rows(self, k, shape):
+        k = np.asarray(k)
+        out = np.empty(k.shape[:-1] + tuple(shape), np.float32)
+        for i in np.ndindex(k.shape[:-1]):
+            a, b, row = (int(x) for x in k[i])
+            self.served["registered" if (a, b) in self.tables else "drawn"] += 1
+            if (a, b) in self.tables:
+                gmin, glo = self.tables[(a, b)]
+                out[i] = gmin[row] if row < self._LO else glo[row // self._LO - 1][row % self._LO]
+            else:
+                out[i] = np.random.default_rng([a, b, row]).gumbel(size=shape)
+        return out
+
+    def gumbel(self, k, shape):
+        return jax.pure_callback(lambda kk: self._rows(kk, shape),
+                                 jax.ShapeDtypeStruct(k.shape[:-1] + tuple(shape), jnp.float32),
+                                 k, vmap_method="expand_dims")
 
 
 class _Jax:
@@ -154,6 +226,15 @@ def _inject(gmin, glo):
     """JAX's RANSAC draws (gmin, glo) from its next trace on."""
     jransac.jax = _Jax(_Random(np.asarray(gmin), np.asarray(glo)))
     jax.clear_caches()
+
+
+def _inject_keyed():
+    """JAX's RANSAC draws from a new `_KeyedRandom` from its next trace on;
+    returns it, for the caller to register the tracking steps' noise."""
+    keyed = _KeyedRandom()
+    jransac.jax = _Jax(keyed)
+    jax.clear_caches()
+    return keyed
 
 
 def _jax_config():
@@ -516,6 +597,109 @@ def steps(jp, tp, frames_n, jax_features, eager):
         _step_gap_summary("JAX eager", eager_rows)
 
 
+def _track_scene():
+    """chip_smoke.py's [track] scene: orbit frames 0 .. N_FRAMES - 1 at
+    192x640 and each step's RANSAC noise as chip_smoke.py draws it (a host
+    generator seeded 0, the minimal then the LO table a step)."""
+    tcfg = smoke._config()
+    poses = synthetic.orbit_poses(smoke.ORBIT_N)[:smoke.N_FRAMES]
+    frames = [synthetic.render_box_room(tcfg.working_camera.K, p, smoke.H, smoke.W) for p in poses]
+    m, k = tcfg.frontend.top_n, tcfg.ransac.num_hypotheses
+    gen = torch.Generator().manual_seed(0)
+    noises = [(transac.gumbel((k, m), gen, "cpu").numpy(),
+               transac.gumbel((transac.lo_hypotheses(k), m), gen, "cpu").numpy())
+              for _ in range(smoke.N_FRAMES - 1)]
+    return frames, noises
+
+
+def track_steps(jp, eager):
+    """JAX's jitted `track_step` chain over chip_smoke.py's [track] scene
+    with its noise (`_KeyedRandom`: one compile for every step), and with
+    `eager` one step with jit disabled from each state of the chain: per
+    step the gaps between the two, the bar of chip_smoke.py's
+    [cpu-vs-card] tail (ROADMAP Faults (g))."""
+    jcfg = _jax_config()
+    frames, noises = _track_scene()
+    keyed = _inject_keyed()
+    state = jtracker.init_state(jp, jnp.asarray(frames[0]), jcfg, 0)
+    rows = []
+    for k, (f, (gmin, glo)) in enumerate(zip(frames[1:], noises)):
+        keyed.register(jax.random.split(state.key)[0], gmin, glo)
+        snap = {n: np.array(v) for n, v in state._asdict().items()}
+        state, jout = jtracker.track_step(jp, state, jnp.asarray(f), jcfg)
+        if not eager:
+            print(f"[steps] JAX jit step {k}: (matches, inliers, scale pairs) "
+                  f"{[int(getattr(jout, n)) for n in ('num_matches', 'num_inliers', 'num_scale_pairs')]}",
+                  flush=True)
+            continue
+        with jax.disable_jit():
+            _, eout = jtracker.track_step(
+                jp, jtracker.TrackerState(**{n: jnp.asarray(v) for n, v in snap.items()}),
+                jnp.asarray(f), jcfg)
+        rows.append(_step_gap_row("JAX eager", k, jout, eout))
+    print(f"[steps] noise rows served: {keyed.served}", flush=True)
+    if rows:
+        _step_gap_summary("JAX eager", rows)
+
+
+def mesh(jp, ranks, verbose):
+    """JAX's mesh-mode SlamSystem (`parallel/mesh.make_mesh(n)` on the CPU's
+    virtual devices) over chip_smoke.py's [slam] scene with its tracking
+    noise, against JAX's single engine on the same frames and noise."""
+    import time
+
+    from maveric_slam_tpu.parallel import mesh as jmesh
+    from maveric_slam_tpu_torch.utils import evaluation
+
+    frames, gt, noises = smoke.slam_scene(smoke._config(), {})
+    keyed = _inject_keyed()
+    key = jax.random.PRNGKey(0)  # the engine's tracker: split once a step
+    for gmin, glo in noises:
+        sub, key = jax.random.split(key)
+        keyed.register(sub, gmin.numpy(), glo.numpy())
+
+    def run(n):
+        slam = _jax_engine(jp, _jax_config(), ba_every=smoke.SLAM_BA_EVERY, enable_loop_closure=True,
+                           fetch_delay=0, mesh=None if n is None else jmesh.make_mesh(n))
+        windows, dispatch = [], slam._dispatch_window_ba
+
+        def solve(fidx):
+            dispatch(fidx)
+            if slam._pending_ba is not None:
+                windows.append(fidx)
+
+        slam._dispatch_window_ba = solve
+        t0 = time.perf_counter()
+        for f in frames:
+            slam.process(f)
+        poses = slam.trajectory()
+        slam.close()
+        return {"poses": poses, "windows": windows, "seconds": time.perf_counter() - t0,
+                "loops": [(e.frame, e.matched_frame, e.num_inliers) for e in slam.loop_events],
+                "valid": sum(s["valid"] for s in slam.stats)}
+
+    def report(label, r, ref):
+        d = np.abs(r["poses"][:, :3, 3] - ref["poses"][:, :3, 3]).max(-1)
+        aligned = evaluation.ate(r["poses"], ref["poses"])["ate_rmse"]
+        print(f"[mesh] {label}: max |dt| {d.max():.6g} m (frame {int(d.argmax())}), aligned RMSE "
+              f"{aligned:.6g} m; ATE {evaluation.ate(r['poses'], gt)['ate_rmse']:.4f} m; valid "
+              f"{r['valid']}/{len(frames) - 1}; {len(r['windows'])} BA windows"
+              f"{'' if r['windows'] == ref['windows'] else ' (NOT the single engine’s)'}; loop pairs "
+              f"{[x[:2] for x in r['loops']]}, inliers {[x[2] for x in r['loops']]}; "
+              f"{r['seconds']:.1f} s", flush=True)
+        if verbose:
+            print("[mesh]   per frame: " + " ".join(f"{x:.3g}" for x in d), flush=True)
+        return float(d.max()), float(aligned)
+
+    ref = run(None)
+    report(f"JAX single engine, {len(frames)} frames at {smoke.H}x{smoke.W}", ref, ref)
+    gaps = {n: report(f"JAX mesh of {n} (make_mesh({n}), CPU virtual devices)", run(n), ref)
+            for n in ranks}
+    d, a = np.array(list(gaps.values())).T
+    print(f"[mesh] JAX over meshes of {list(gaps)}: max |dt| largest {d.max():.6g} m, aligned RMSE "
+          f"largest {a.max():.6g} m; noise rows served {keyed.served}", flush=True)
+
+
 def checkpoint(jp, tp, fetch_delay, save_at=6, frames_n=13):
     """The JAX engine saved mid-run at `fetch_delay` and resumed, against its
     unbroken run; then the port's save at the same point."""
@@ -747,9 +931,11 @@ def main():
     ap.add_argument("--jax-order", action="store_true")
     ap.add_argument("--jax-features", action="store_true")
     ap.add_argument("--seeds", type=int, default=1)
+    ap.add_argument("--ranks", type=int, nargs="+", default=[2, 4, 8])
+    ap.add_argument("--verbose", action="store_true")
     args = ap.parse_args()
     jp, tp = (_params() if {"stream0", "pairwise", "slam", "tracker", "steps", "checkpoint", "degenerate",
-                            "long", "synthetic", "loop-edges"}
+                            "long", "synthetic", "loop-edges", "mesh"}
               & set(args.what)
               else (None, None))
     for w in args.what:
@@ -758,7 +944,9 @@ def main():
          "slam": lambda: slam(jp, tp, args.size, args.frames, args.fetch_delay, args.eager,
                               args.port, args.port_ba, args.jax_order),
          "tracker": lambda: tracker(jp, tp, args.seeds),
-         "steps": lambda: steps(jp, tp, args.frames, args.jax_features, args.eager),
+         "steps": lambda: (track_steps(jp, args.eager) if args.size == "192x640" else
+                           steps(jp, tp, args.frames, args.jax_features, args.eager)),
+         "mesh": lambda: mesh(jp, args.ranks, args.verbose),
          "checkpoint": lambda: checkpoint(jp, tp, args.fetch_delay or 3),
          "degenerate": lambda: degenerate(jp), "long": lambda: long(jp, args.frames),
          "synthetic": lambda: synthetic_seeds(jp, args.seeds),
