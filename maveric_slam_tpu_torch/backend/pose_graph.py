@@ -12,6 +12,10 @@ thread, a fixed order: two solves of one graph on a card are bitwise equal
 (chip_smoke.py `[pose-graph]` checks it), which a resumed engine needs to
 replay a loop closure exactly (`[resume]`). The card is held to the CPU
 within a tolerance (`[pose-graph]`): their products round differently.
+
+Each iteration's spans (utils/profiling.py): `pose_graph.normal_system`
+(the Jacobians, H and b), `pose_graph.lu_solve` (the damped solve) and
+`pose_graph.update` (the step, its cost and the acceptance).
 """
 
 from __future__ import annotations
@@ -21,6 +25,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from ..ops import lie
+from ..utils import profiling
 from . import relin
 
 
@@ -80,20 +85,23 @@ def optimize(graph: PoseGraph, iterations: int = 10, damping: float = 1e-6,
     lam = torch.tensor(max(damping, 1e-4), dtype=dt_, device=dev)
     costs = [cost]
     for _ in range(iterations):
-        H, b = _normal_system(graph, R, t)
-        H = H + torch.einsum("pq,im->pqim", eye_p, lam * eye6)
-        H = H + torch.einsum("pq,p,im->pqim", eye_p, gauge, eye6)
-        dx = torch.linalg.solve_ex(H.transpose(1, 2).reshape(p * 6, p * 6),
-                                   b.reshape(-1))[0].reshape(p, 6)
-        dR, dt = lie.se3_exp(dx)
-        R_c, t_c = dR @ R, torch.einsum("pij,pj->pi", dR, t) + dt
-        new_cost = _cost(graph, R_c, t_c)
-        accept = torch.isfinite(new_cost) & (new_cost < cost)
-        R = torch.where(accept, R_c, R)
-        t = torch.where(accept, t_c, t)
-        cost = torch.where(accept, new_cost, cost)
-        lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e6)
-        costs.append(cost)
+        with profiling.span("pose_graph.normal_system"):
+            H, b = _normal_system(graph, R, t)
+        with profiling.span("pose_graph.lu_solve"):
+            H = H + torch.einsum("pq,im->pqim", eye_p, lam * eye6)
+            H = H + torch.einsum("pq,p,im->pqim", eye_p, gauge, eye6)
+            dx = torch.linalg.solve_ex(H.transpose(1, 2).reshape(p * 6, p * 6),
+                                       b.reshape(-1))[0].reshape(p, 6)
+        with profiling.span("pose_graph.update"):
+            dR, dt = lie.se3_exp(dx)
+            R_c, t_c = dR @ R, torch.einsum("pij,pj->pi", dR, t) + dt
+            new_cost = _cost(graph, R_c, t_c)
+            accept = torch.isfinite(new_cost) & (new_cost < cost)
+            R = torch.where(accept, R_c, R)
+            t = torch.where(accept, t_c, t)
+            cost = torch.where(accept, new_cost, cost)
+            lam = torch.clamp(torch.where(accept, lam * 0.5, lam * 4.0), 1e-8, 1e6)
+            costs.append(cost)
     return graph._replace(R=R, t=t), torch.stack(costs)
 
 

@@ -16,12 +16,14 @@ Six measurements, one JSON line each, and the report written to --out
    LCD's 50-frame gap (from frame ~56) its keyframes close loops: the
    timed run must verify and accept at least one, so the figure holds loop
    verification and the pose graph. A first pass, its last 8 frames under
-   torch.profiler (device busy ms a frame), then a fresh engine timed. Its
-   ms a frame is split into the fetch wait (the host blocked on a frame's
-   device-to-host copy in `_consume`), the host bookkeeping (the rest of
-   `_consume`, loop verification and the pose graph included, also given
-   alone) and the rest of the wall (the step's dispatch and its own host
-   work).
+   torch.profiler (device busy ms a frame), then a fresh engine timed
+   under a `Timer.recording()` of its spans (utils/profiling.py). Its ms a
+   frame is split into the fetch wait (`slam.fetch_wait`: the host blocked
+   on a frame's device-to-host copy), the host bookkeeping (the rest of
+   `slam.consume`, loop verification and the pose graph included, also
+   given alone: `slam.loop`) and the rest of the wall (the step's dispatch
+   and its own host work). Its checks carry the engine's counters
+   (`SlamSystem.counters`).
 4. window BA: dense `bundle_adjust` at L = 1024, P = 8, 10 iterations
    (scaling.build_problem); `relin.between_residual_jacobians` on 256
    factors; the factor-list solver and the dense one with 35% of the
@@ -40,7 +42,6 @@ import argparse
 import json
 import os
 import sys
-import time
 
 import numpy as np
 import torch
@@ -50,6 +51,7 @@ from ..backend import ba, relin, sparse_ba
 from ..frontend import extractor, pairwise
 from ..loopclosure import lcd, vocab as vocab_lib
 from ..ops import lie
+from ..utils import profiling
 from ..utils.trajectory import relative_from_poses
 from . import common, headline, scaling
 
@@ -94,30 +96,6 @@ def bench_tracking(params, orbit, device, rounds=headline.ROUNDS):
             "protocol": "headline.py's single stream"}
 
 
-class _TimedSlam(slam_lib.SlamSystem):
-    """The engine with `_consume` split into the wait for the frame's host
-    copy and the bookkeeping after it, and the loop verifications (with
-    the pose graph when one is accepted) timed within the bookkeeping."""
-
-    wait_s = 0.0
-    host_s = 0.0
-    loop_s = 0.0
-
-    def _consume(self, fidx, fetch, wa):
-        t0 = time.perf_counter()
-        fetch.result()  # the host copy; super()._consume reads it again at no cost
-        t1 = time.perf_counter()
-        super()._consume(fidx, fetch, wa)
-        self.wait_s += t1 - t0
-        self.host_s += time.perf_counter() - t1
-
-    def _verify_and_close_loop(self, *a):
-        t0 = time.perf_counter()
-        out = super()._verify_and_close_loop(*a)
-        self.loop_s += time.perf_counter() - t0
-        return out
-
-
 def engine_stream(orbit, n_frames=ENGINE_FRAMES) -> list:
     """The engine's frames: the first ENGINE_IMAGES orbit frames
     ping-ponged, each made content-unique."""
@@ -130,7 +108,8 @@ def bench_slam(params, orbit, device, n_frames=ENGINE_FRAMES):
     stream = engine_stream(orbit, n_frames)
 
     def engine():
-        return _TimedSlam(params, cfg, ba_every=4, enable_loop_closure=True, fetch_delay=3, device=device)
+        return slam_lib.SlamSystem(params, cfg, ba_every=4, enable_loop_closure=True, fetch_delay=3,
+                                   device=device)
 
     # First pass (allocator, cuBLAS and cuSOLVER handles, kernel loads); its
     # last frames, warm by then, under the profiler.
@@ -145,40 +124,49 @@ def bench_slam(params, orbit, device, n_frames=ENGINE_FRAMES):
 
     busy, launches = common.device_busy_ms(tail, device)
 
+    spans = profiling.Timer()
+
     def run_engine():
         s = engine()
-        for f in stream:
-            s.process(f)
-        s.finish()
+        with spans.recording():
+            for f in stream:
+                s.process(f)
+            s.finish()
         return s
 
     dt, s = common.wall_s(run_engine, device)
     valid = np.array([st["valid"] for st in s.stats])
     inl = np.array([st["inliers"] for st in s.stats])
     checks = {"valid_share": float(valid.mean()), "median_inliers": float(np.median(inl)),
-              "loop_verifications": s.verifications, "loop_closures": len(s.loop_events)}
+              "loop_verifications": s.verifications, "loop_closures": len(s.loop_events),
+              "counters": dict(s.counters)}
     common.check(checks["valid_share"] >= headline.CHECKS["valid_share"]
                  and checks["median_inliers"] >= headline.CHECKS["median_inliers"]
                  and checks["loop_closures"] > 0, f"engine: {checks}")
     ms = dt / n_frames * 1e3
+    tot = spans.totals
+    wait_s, consume_s = tot["slam.fetch_wait"], tot["slam.consume"]
     return {
         "metric": "slam_fps_integrated", "value": n_frames / dt,
         "unit": "frames/s (full engine: track + BA + LCD + loop verification + pose graph)",
         "ms_per_frame": ms,
         "slam_device_busy_ms": None if busy is None else busy / TRACED_FRAMES,
         "slam_kernels_per_frame": None if launches is None else launches / TRACED_FRAMES,
-        "slam_host_ms": s.host_s / n_frames * 1e3,
-        "slam_loop_ms": s.loop_s / n_frames * 1e3,
-        "slam_fetch_wait_ms": s.wait_s / n_frames * 1e3,
-        "slam_other_ms": ms - (s.host_s + s.wait_s) / n_frames * 1e3,
+        "slam_host_ms": (consume_s - wait_s) / n_frames * 1e3,
+        "slam_loop_ms": tot["slam.loop"] / n_frames * 1e3,
+        "slam_fetch_wait_ms": wait_s / n_frames * 1e3,
+        "slam_other_ms": ms - consume_s / n_frames * 1e3,
         "checks": checks,
-        "decomposition": "fetch_wait = blocking on a frame's device-to-host copy in _consume; host "
-                         "= the rest of _consume (track table, pose chain, BA assembly and apply, "
-                         "keyframe LCD, loop verification and the pose graph); loop = the "
-                         "verifications and pose-graph solves alone (within host); other = the "
-                         "wall outside _consume (the step's dispatch and its host work); device "
-                         f"busy from torch.profiler over the first pass's last {TRACED_FRAMES} "
-                         "frames (two BA windows)",
+        "decomposition": "the timed run's spans (utils/profiling.py, host time): fetch_wait = "
+                         "slam.fetch_wait, blocking on a frame's device-to-host copy; host = "
+                         "slam.consume less slam.fetch_wait (slam.track_table, slam.ba.problem, "
+                         "slam.ba.dispatch, slam.ba.apply, slam.lcd, slam.loop); loop = "
+                         "slam.loop, a candidate's verification (slam.loop.verify), its edge "
+                         "and the BA apply and pose graph (slam.pose_graph) it forces (within "
+                         "host); other = the wall outside slam.consume "
+                         "(tracker.step and slam.words: the step's dispatch and its host work); "
+                         "device busy from torch.profiler over the first pass's last "
+                         f"{TRACED_FRAMES} frames (two BA windows)",
     }
 
 

@@ -9,7 +9,10 @@ maveric_slam_tpu/cli/track.py):
 
 Writes KITTI-format poses (poses.txt), a PLY polyline (trajectory.ply),
 with --gt the ATE/RPE metrics (metrics.json), and with --plot a top-down
-plot (trajectory.png). --checkpoint saves the engine's state there at the
+plot (trajectory.png). Its closing lines print the loop closures and the
+engine's counters (`SlamSystem.counters`: keyframes, BA windows dispatched
+and skipped, loops accepted, pose-graph solves) with its loop
+verifications. --checkpoint saves the engine's state there at the
 end (utils/checkpoint.py), and every N frames with --checkpoint-every N;
 --resume restores a checkpoint first and goes on from the frame after it.
 It runs on the CUDA device unless `--device cpu` is given; `--seed` seeds
@@ -139,6 +142,8 @@ def _run(args) -> None:
     print(f"wrote {args.out_dir}/poses.txt ({len(poses)} poses)")
     if slam.loop_events:
         print(f"loop closures: {[(e.frame, e.matched_frame) for e in slam.loop_events]}")
+    counts = dict(slam.counters, verifications=slam.verifications)
+    print("counters: " + " ".join(f"{k}={v}" for k, v in counts.items()))
     if args.checkpoint:
         print(f"checkpointed to {args.checkpoint}")
 

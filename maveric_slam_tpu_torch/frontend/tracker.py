@@ -4,8 +4,20 @@ maveric_slam_tpu/frontend/tracker.py).
 One step: int8 SuperPoint (fused stem), the detector and top-N, the
 windowed match against the previous frame, 256-hypothesis LO-RANSAC on the
 essential matrix, midpoint triangulation, depth-ratio scale and
-Gauss-Newton PnP. The step makes no host synchronisation; the host loops
-(`Tracker`, `PipelinedTracker`) read its statistics.
+Gauss-Newton PnP. The step reads nothing back to the host; the host loops
+(`Tracker`, `PipelinedTracker`) read its statistics. PyTorch synchronises
+each upload of a host tensor, though, and the step makes three: the camera
+matrix (span `tracker.camera`), RANSAC's refit schedule and the pose
+decomposition's `W`. On a card the first waits for the extraction and the
+match queued before it.
+
+Spans (utils/profiling.py): `tracker.step` (`track_step`,
+`track_step_batched`) or `tracker.chunk` (`track_chunk`) around
+`tracker.extract`, then, per frame, `tracker.match`, `tracker.camera`,
+`tracker.ransac` (normalisation, noise draws, `ransac_essential`),
+`tracker.scale` (triangulation, depth-ratio scale), `tracker.refine_pose`
+(PnP and its fall-back) and `tracker.state` (the degenerate gate, the depth
+map, the new state and the result).
 
 Streams. The step is written once, over a leading stream axis S
 (`_step_from_feats`): `track_step_batched` runs S independent streams in
@@ -33,6 +45,7 @@ from ..geometry import epipolar, pnp, ransac
 from ..ops import matching
 from ..ops.backend import resolve_device
 from ..ops.linalg import apply_rows
+from ..utils import profiling
 from . import extractor
 
 
@@ -130,12 +143,14 @@ def track_step(params, state: TrackerState, image: torch.Tensor, config: SlamCon
     """One tracking step on the image's device. `gumbel_min`
     (num_hypotheses, top_n) and `gumbel_lo` (lo hypotheses, top_n) inject the
     RANSAC noise; otherwise it is drawn from `state.generator`."""
-    feats = extractor.extract_quantized_batched(params, image[None], config)
-    new, res = _step_from_feats(
-        _batched(state), feats, config,
-        None if gumbel_min is None else gumbel_min[None],
-        None if gumbel_lo is None else gumbel_lo[None])
-    return _stream(new, 0), StepResult(*(f[0] for f in res))
+    with profiling.span("tracker.step"):
+        with profiling.span("tracker.extract"):
+            feats = extractor.extract_quantized_batched(params, image[None], config)
+        new, res = _step_from_feats(
+            _batched(state), feats, config,
+            None if gumbel_min is None else gumbel_min[None],
+            None if gumbel_lo is None else gumbel_lo[None])
+        return _stream(new, 0), StepResult(*(f[0] for f in res))
 
 
 def track_step_batched(params, states: TrackerState, images: torch.Tensor, config: SlamConfig,
@@ -145,8 +160,10 @@ def track_step_batched(params, states: TrackerState, images: torch.Tensor, confi
     batched pass. `gumbel_min` (S, num_hypotheses, top_n) and `gumbel_lo`
     (S, lo hypotheses, top_n) inject the noise; otherwise each stream draws
     from its own generator."""
-    feats = extractor.extract_quantized_batched(params, images, config)
-    return _step_from_feats(states, feats, config, gumbel_min, gumbel_lo)
+    with profiling.span("tracker.step"):
+        with profiling.span("tracker.extract"):
+            feats = extractor.extract_quantized_batched(params, images, config)
+        return _step_from_feats(states, feats, config, gumbel_min, gumbel_lo)
 
 
 def track_chunk(params, state: TrackerState, images: torch.Tensor, config: SlamConfig,
@@ -157,16 +174,18 @@ def track_chunk(params, state: TrackerState, images: torch.Tensor, config: SlamC
     as JAX's `lax.scan` does. The results equal K `track_step` calls and gain
     a leading K axis; `gumbel_min` (K, num_hypotheses, top_n) and `gumbel_lo`
     (K, lo hypotheses, top_n) inject each frame's noise."""
-    feats = extractor.extract_quantized_batched(params, images, config)
-    st = _batched(state)
-    out = []
-    for k in range(images.shape[0]):
-        st, res = _step_from_feats(
-            st, extractor.select(feats, slice(k, k + 1)), config,
-            None if gumbel_min is None else gumbel_min[k:k + 1],
-            None if gumbel_lo is None else gumbel_lo[k:k + 1])
-        out.append(res)
-    return _stream(st, 0), StepResult(*(torch.cat(f) for f in zip(*out)))
+    with profiling.span("tracker.chunk"):
+        with profiling.span("tracker.extract"):
+            feats = extractor.extract_quantized_batched(params, images, config)
+        st = _batched(state)
+        out = []
+        for k in range(images.shape[0]):
+            st, res = _step_from_feats(
+                st, extractor.select(feats, slice(k, k + 1)), config,
+                None if gumbel_min is None else gumbel_min[k:k + 1],
+                None if gumbel_lo is None else gumbel_lo[k:k + 1])
+            out.append(res)
+        return _stream(st, 0), StepResult(*(torch.cat(f) for f in zip(*out)))
 
 
 def _step_from_feats(state: TrackerState, feats: extractor.QuantizedFeatures,
@@ -180,100 +199,108 @@ def _step_from_feats(state: TrackerState, feats: extractor.QuantizedFeatures,
     desc1 = feats.desc_q.reshape(s, n_cells, 256)
     top = feats.top
 
-    m = matching.windowed_match(
-        state.desc, state.probs, state.indices, desc1, top.cells, top.indices, top.mask,
-        grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
-        radius=mc.window_radius, match_threshold=mc.match_threshold,
-        min_prob=mc.min_prob, xy0_cells=state.xy, xy1_cells=feats.xy.reshape(s, n_cells, 2),
-    )
+    with profiling.span("tracker.match"):
+        m = matching.windowed_match(
+            state.desc, state.probs, state.indices, desc1, top.cells, top.indices, top.mask,
+            grid_h=fc.grid_h, grid_w=fc.grid_w, shift=mc.window_shift,
+            radius=mc.window_radius, match_threshold=mc.match_threshold,
+            min_prob=mc.min_prob, xy0_cells=state.xy, xy1_cells=feats.xy.reshape(s, n_cells, 2),
+        )
 
-    K = torch.from_numpy(config.working_camera.K).to(dev)
-    p_prev = epipolar.normalize_points(m.xy0, K)
-    p_new = epipolar.normalize_points(m.xy1, K)
-    if gumbel_min is None or gumbel_lo is None:
-        lo_k, n = ransac.lo_hypotheses(rc.num_hypotheses), fc.top_n
-        draws = [(ransac.gumbel((rc.num_hypotheses, n), g, dev), ransac.gumbel((lo_k, n), g, dev))
-                 for g in state.generator]
-        gumbel_min = torch.stack([d[0] for d in draws]) if gumbel_min is None else gumbel_min
-        gumbel_lo = torch.stack([d[1] for d in draws]) if gumbel_lo is None else gumbel_lo
-    res = ransac.ransac_essential(
-        p_prev, p_new, m.mask, inlier_thresh=rc.inlier_thresh,
-        num_hypotheses=rc.num_hypotheses, sample_size=rc.sample_size,
-        gumbel_min=gumbel_min, gumbel_lo=gumbel_lo,
-    )
+    # The camera matrix's upload: PyTorch synchronises a host tensor's copy
+    # to a card, so on one this span is the host's wait for the queued work.
+    with profiling.span("tracker.camera"):
+        K = torch.from_numpy(config.working_camera.K).to(dev)
+    with profiling.span("tracker.ransac"):
+        p_prev = epipolar.normalize_points(m.xy0, K)
+        p_new = epipolar.normalize_points(m.xy1, K)
+        if gumbel_min is None or gumbel_lo is None:
+            lo_k, n = ransac.lo_hypotheses(rc.num_hypotheses), fc.top_n
+            draws = [(ransac.gumbel((rc.num_hypotheses, n), g, dev), ransac.gumbel((lo_k, n), g, dev))
+                     for g in state.generator]
+            gumbel_min = torch.stack([d[0] for d in draws]) if gumbel_min is None else gumbel_min
+            gumbel_lo = torch.stack([d[1] for d in draws]) if gumbel_lo is None else gumbel_lo
+        res = ransac.ransac_essential(
+            p_prev, p_new, m.mask, inlier_thresh=rc.inlier_thresh,
+            num_hypotheses=rc.num_hypotheses, sample_size=rc.sample_size,
+            gumbel_min=gumbel_min, gumbel_lo=gumbel_lo,
+        )
 
-    # Unit-baseline structure in the previous frame's coordinates.
-    X_unit = epipolar.triangulate(res.R, res.t, p_prev, p_new)
-    depth_ok = res.inliers & (X_unit[..., 2] > 1e-3) & (X_unit[..., 2] < 1e3)
+    with profiling.span("tracker.scale"):
+        # Unit-baseline structure in the previous frame's coordinates.
+        X_unit = epipolar.triangulate(res.R, res.t, p_prev, p_new)
+        depth_ok = res.inliers & (X_unit[..., 2] > 1e-3) & (X_unit[..., 2] < 1e3)
 
-    # Depth-ratio scale against last step's depths at the matched cells.
-    cell0 = m.cell0.long()
-    c0 = torch.clamp(cell0, min=0)
-    prev_depth = torch.take_along_dim(state.depth, c0, dim=-1)
-    prev_ok = torch.take_along_dim(state.depth_valid, c0, dim=-1) & (cell0 >= 0)
-    ratio = prev_depth / torch.clamp(X_unit[..., 2], min=1e-6)
-    pair_ok = depth_ok & prev_ok
-    scale = torch.clamp(_masked_median(ratio, pair_ok, state.scale), 1e-3, 1e3)
+        # Depth-ratio scale against last step's depths at the matched cells.
+        cell0 = m.cell0.long()
+        c0 = torch.clamp(cell0, min=0)
+        prev_depth = torch.take_along_dim(state.depth, c0, dim=-1)
+        prev_ok = torch.take_along_dim(state.depth_valid, c0, dim=-1) & (cell0 >= 0)
+        ratio = prev_depth / torch.clamp(X_unit[..., 2], min=1e-6)
+        pair_ok = depth_ok & prev_ok
+        scale = torch.clamp(_masked_median(ratio, pair_ok, state.scale), 1e-3, 1e3)
 
-    X_scaled = X_unit * scale[:, None, None]
-    t_scaled = res.t * scale[:, None]
-    refined = pnp.refine_pose(K, res.R, t_scaled, X_scaled, m.xy1, depth_ok,
-                              huber_delta=config.ba.huber_delta, damping=config.ba.lm_damping)
-    # Fall back to the RANSAC pose if GN diverged.
-    t_norm = torch.linalg.vector_norm(refined.t, dim=-1)
-    ok = (t_norm > 0.25 * scale) & (t_norm < 4.0 * scale) & (res.num_inliers > 10)
-    R_out = torch.where(ok[:, None, None], refined.R, res.R)
-    t_out = torch.where(ok[:, None], refined.t, t_scaled)
+        X_scaled = X_unit * scale[:, None, None]
+        t_scaled = res.t * scale[:, None]
+    with profiling.span("tracker.refine_pose"):
+        refined = pnp.refine_pose(K, res.R, t_scaled, X_scaled, m.xy1, depth_ok,
+                                  huber_delta=config.ba.huber_delta, damping=config.ba.lm_damping)
+        # Fall back to the RANSAC pose if GN diverged.
+        t_norm = torch.linalg.vector_norm(refined.t, dim=-1)
+        ok = (t_norm > 0.25 * scale) & (t_norm < 4.0 * scale) & (res.num_inliers > 10)
+        R_out = torch.where(ok[:, None, None], refined.R, res.R)
+        t_out = torch.where(ok[:, None], refined.t, t_scaled)
 
-    # Degenerate-frame gate: emit a flagged constant-velocity step.
-    step_valid = ((m.num_matches >= 8) & (res.num_inliers >= 5)
-                  & torch.all(torch.isfinite(R_out).reshape(s, 9), dim=-1)
-                  & torch.all(torch.isfinite(t_out), dim=-1))
-    R_out = torch.where(step_valid[:, None, None], R_out, state.prev_R)
-    t_out = torch.where(step_valid[:, None], t_out, state.prev_t)
+    with profiling.span("tracker.state"):
+        # Degenerate-frame gate: emit a flagged constant-velocity step.
+        step_valid = ((m.num_matches >= 8) & (res.num_inliers >= 5)
+                      & torch.all(torch.isfinite(R_out).reshape(s, 9), dim=-1)
+                      & torch.all(torch.isfinite(t_out), dim=-1))
+        R_out = torch.where(step_valid[:, None, None], R_out, state.prev_R)
+        t_out = torch.where(step_valid[:, None], t_out, state.prev_t)
 
-    # Per-cell depth map in the new frame. Rows that do not write go to a
-    # spare slot past the grid, so no masked row can clobber a real cell.
-    p_cam_new = apply_rows(X_scaled, R_out) + t_out[:, None, :]
-    write = depth_ok & step_valid[:, None] & torch.all(torch.isfinite(p_cam_new), dim=-1)
-    depth_top = torch.where(write, p_cam_new[..., 2], 0.0)
-    slot = torch.where(write, top.cells.long(), n_cells)
-    new_depth = torch.zeros(s, n_cells + 1, dtype=torch.float32, device=dev)
-    new_depth.scatter_(1, slot, depth_top)
-    new_valid = torch.zeros(s, n_cells + 1, dtype=torch.bool, device=dev)
-    new_valid.scatter_(1, slot, write)
+        # Per-cell depth map in the new frame. Rows that do not write go to a
+        # spare slot past the grid, so no masked row can clobber a real cell.
+        p_cam_new = apply_rows(X_scaled, R_out) + t_out[:, None, :]
+        write = depth_ok & step_valid[:, None] & torch.all(torch.isfinite(p_cam_new), dim=-1)
+        depth_top = torch.where(write, p_cam_new[..., 2], 0.0)
+        slot = torch.where(write, top.cells.long(), n_cells)
+        new_depth = torch.zeros(s, n_cells + 1, dtype=torch.float32, device=dev)
+        new_depth.scatter_(1, slot, depth_top)
+        new_valid = torch.zeros(s, n_cells + 1, dtype=torch.bool, device=dev)
+        new_valid.scatter_(1, slot, write)
 
-    new_state = TrackerState(
-        desc=desc1,
-        probs=feats.probs.reshape(s, n_cells),
-        indices=feats.indices.reshape(s, n_cells),
-        xy=feats.xy.reshape(s, n_cells, 2),
-        depth=new_depth[:, :n_cells],
-        depth_valid=new_valid[:, :n_cells],
-        scale=torch.where(step_valid, torch.linalg.vector_norm(t_out, dim=-1), state.scale),
-        prev_R=R_out,
-        prev_t=t_out,
-        generator=state.generator,
-    )
-    inliers_out = res.inliers & step_valid[:, None]
-    return new_state, StepResult(
-        R=R_out,
-        t=t_out,
-        valid=step_valid,
-        num_matches=m.num_matches,
-        num_inliers=torch.where(step_valid, res.num_inliers, 0).to(torch.int32),
-        num_scale_pairs=torch.sum(pair_ok, dim=-1).to(torch.int32),
-        scale=scale,
-        cells_new=top.cells,
-        xy_new=m.xy1,
-        matched_prev_cell=torch.where(inliers_out, m.cell0, -1).to(torch.int32),
-        match_score=m.score,
-        match_mask=m.mask & inliers_out,
-        desc_top=torch.take_along_dim(desc1, top.cells.long()[..., None], dim=-2),
-        desc_scale=feats.desc_scale.expand(s),
-        depth_top=depth_top,
-        depth_top_ok=write,
-    )
+        new_state = TrackerState(
+            desc=desc1,
+            probs=feats.probs.reshape(s, n_cells),
+            indices=feats.indices.reshape(s, n_cells),
+            xy=feats.xy.reshape(s, n_cells, 2),
+            depth=new_depth[:, :n_cells],
+            depth_valid=new_valid[:, :n_cells],
+            scale=torch.where(step_valid, torch.linalg.vector_norm(t_out, dim=-1), state.scale),
+            prev_R=R_out,
+            prev_t=t_out,
+            generator=state.generator,
+        )
+        inliers_out = res.inliers & step_valid[:, None]
+        return new_state, StepResult(
+            R=R_out,
+            t=t_out,
+            valid=step_valid,
+            num_matches=m.num_matches,
+            num_inliers=torch.where(step_valid, res.num_inliers, 0).to(torch.int32),
+            num_scale_pairs=torch.sum(pair_ok, dim=-1).to(torch.int32),
+            scale=scale,
+            cells_new=top.cells,
+            xy_new=m.xy1,
+            matched_prev_cell=torch.where(inliers_out, m.cell0, -1).to(torch.int32),
+            match_score=m.score,
+            match_mask=m.mask & inliers_out,
+            desc_top=torch.take_along_dim(desc1, top.cells.long()[..., None], dim=-2),
+            desc_scale=feats.desc_scale.expand(s),
+            depth_top=depth_top,
+            depth_top_ok=write,
+        )
 
 
 def _stats(res: StepResult) -> List[dict]:

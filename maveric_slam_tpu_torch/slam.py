@@ -35,6 +35,15 @@ from the pool's blocks. Once a frame the ranks compare a digest of that
 buffer, so ranks that drift apart raise rather than wait forever in
 different collectives.
 
+Spans (utils/profiling.py) name the engine's stages: `slam.process` around
+a frame, holding the tracker's spans, `slam.words` (words, pool, packing,
+the host copy started) and `slam.consume`; inside that `slam.fetch_wait`,
+`slam.track_table`, `slam.ba.problem` (the window's observations from the
+track table), `slam.ba.dispatch`, `slam.ba.apply`, `slam.lcd` and
+`slam.loop` (a candidate's verification and correction), which holds
+`slam.loop.verify` and `slam.pose_graph` (`.build`, `.solve`, `.apply`).
+`counters` counts the same work (COUNTERS).
+
 Pose bookkeeping: self.poses[k] is T_w_ck (camera-to-world, KITTI format).
 """
 
@@ -58,6 +67,7 @@ from .ops.kernels import _build
 from .parallel import mesh as mesh_lib
 from .parallel import sharded_ba
 from .tracks import TrackTable
+from .utils import profiling
 from .utils.trajectory import compose_trajectory
 
 
@@ -222,11 +232,31 @@ def _verify_loop_device(flat: torch.Tensor, config: SlamConfig, top_n: int,
                       flow_med.reshape(1), rr.inliers.to(torch.float32), X_unit[:, 2]])
 
 
+# The engine's counters (`SlamSystem.counters`), each raised where the span
+# of the same work opens (utils/profiling.py), so that over any stretch of
+# frames a counter rises by the count of its span. The rest follows from
+# them: every keyframe queries the LCD; `verifications` counts the query
+# hits whose slot is still current; a BA window is applied one dispatch
+# later at most; accepted loops less pose-graph solves were gated.
+COUNTERS = (
+    "keyframes",  # keyframes taken and LCD queries made (span slam.lcd)
+    "ba_dispatched",  # window BA solves enqueued (slam.ba.dispatch)
+    "ba_skipped",  # BA windows with too few frames or landmarks (slam.ba.problem without dispatch)
+    "loops_accepted",  # verifications with 30 or more inliers: a loop edge kept
+    "pose_graph_solves",  # pose-graph solves (slam.pose_graph)
+)
+
+
 class SlamSystem:
     """The engine on `device` (None: CUDA; raises without a card), or, with
     `mesh` (a parallel.mesh.Mesh), one rank of the mesh-mode engine on the
     mesh's device. `verify_noise`, if given, maps the k-th loop verification
-    (k = 0, 1, ...) to its RANSAC noise (gumbel_min, gumbel_lo)."""
+    (k = 0, 1, ...) to its RANSAC noise (gumbel_min, gumbel_lo).
+
+    `counters` maps each name of COUNTERS to how often that work ran since
+    the engine was constructed or restored. They are always on and are not
+    checkpointed; `verifications`, the loop verifications so far, is engine
+    state that a checkpoint carries (it indexes the verifications' noise)."""
 
     def __init__(
         self,
@@ -253,6 +283,7 @@ class SlamSystem:
         self.verify_noise = verify_noise
         self._verify_gen = torch.Generator(device=self.device).manual_seed(seed + 1)
         self.verifications = 0  # loop candidates verified so far
+        self.counters = dict.fromkeys(COUNTERS, 0)
         if self.device.type == "cuda":
             # Build or load the kernels here rather than inside the first
             # step, so that a deadline on a step (utils/elastic.py) never
@@ -306,33 +337,35 @@ class SlamSystem:
         """Track one frame. `gumbel_min` (num_hypotheses, top_n) and
         `gumbel_lo` (lo hypotheses, top_n) inject the step's RANSAC noise;
         otherwise it is drawn from the tracker state's generator."""
-        img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
-        self.frame_idx += 1
-        if self.state is None:
-            self.state = trk.init_state(self.params, img, self.config, self.seed)
-            self.poses.append(np.eye(4))
-            return
-        noise = [None if g is None else torch.as_tensor(g, device=self.device)
-                 for g in (gumbel_min, gumbel_lo)]
-        self.state, step = trk.track_step(self.params, self.state, img, self.config, *noise)
-        if self.enable_loop_closure:
-            wa = vocab_lib.assign_words(step.desc_top, step.desc_scale, step.cells_new >= 0,
-                                        self.vocab).word_id
-            if self.mesh is None:
-                self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
-                self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
-            else:
-                self.pool = sharded_pool.observe_batch(self.pool, wa, self.frame_idx, self.mesh)
-                self.pool = sharded_pool.remove_old(self.pool, self.frame_idx, self.mesh)
-            sightings = (self.pool.num_sightings if self.mesh is None
-                         else sharded_pool.gather_sightings(self.pool, self.mesh))
-            packed = self._packer.pack(step, wa, sightings)
-        else:
-            wa = None
-            packed = self._packer.pack(step)
-        self._pending.append((self.frame_idx, _HostCopy(packed), wa))
-        while len(self._pending) > self.fetch_delay:
-            self._consume(*self._pending.pop(0))
+        with profiling.span("slam.process"):
+            img = torch.as_tensor(np.asarray(image, np.float32), device=self.device)
+            self.frame_idx += 1
+            if self.state is None:
+                self.state = trk.init_state(self.params, img, self.config, self.seed)
+                self.poses.append(np.eye(4))
+                return
+            noise = [None if g is None else torch.as_tensor(g, device=self.device)
+                     for g in (gumbel_min, gumbel_lo)]
+            self.state, step = trk.track_step(self.params, self.state, img, self.config, *noise)
+            with profiling.span("slam.words"):
+                if self.enable_loop_closure:
+                    wa = vocab_lib.assign_words(step.desc_top, step.desc_scale, step.cells_new >= 0,
+                                                self.vocab).word_id
+                    if self.mesh is None:
+                        self.pool = feature_pool.observe_batch(self.pool, wa, self.frame_idx)
+                        self.pool = feature_pool.remove_old(self.pool, self.frame_idx)
+                    else:
+                        self.pool = sharded_pool.observe_batch(self.pool, wa, self.frame_idx, self.mesh)
+                        self.pool = sharded_pool.remove_old(self.pool, self.frame_idx, self.mesh)
+                    sightings = (self.pool.num_sightings if self.mesh is None
+                                 else sharded_pool.gather_sightings(self.pool, self.mesh))
+                    packed = self._packer.pack(step, wa, sightings)
+                else:
+                    wa = None
+                    packed = self._packer.pack(step)
+                self._pending.append((self.frame_idx, _HostCopy(packed), wa))
+            while len(self._pending) > self.fetch_delay:
+                self._consume(*self._pending.pop(0))
 
     def finish(self) -> None:
         """Drain the pipeline: consume pending frames, apply the in-flight
@@ -359,9 +392,29 @@ class SlamSystem:
         """Host-side bookkeeping for one tracked frame: `fetch` holds the
         packed step buffer's host copy, `wa` the device-resident word ids
         the keyframe LCD path uses."""
-        flat = fetch.result()
-        if self.mesh is not None:
-            mesh_lib.check_replicas(flat, self.mesh, f"frame {fidx}")
+        with profiling.span("slam.consume"):
+            with profiling.span("slam.fetch_wait"):
+                flat = fetch.result()
+            if self.mesh is not None:
+                mesh_lib.check_replicas(flat, self.mesh, f"frame {fidx}")
+            with profiling.span("slam.track_table"):
+                step = self._track_table(fidx, flat, wa is not None)
+
+            # Apply the previous window's BA solve once it has landed.
+            self._apply_pending_ba()
+
+            if fidx >= 3 and self.ba_every and fidx % self.ba_every == 0:
+                self._dispatch_window_ba(fidx)
+                if self.fetch_delay == 0:
+                    self._apply_pending_ba()
+
+            if self.enable_loop_closure:
+                self._keyframe_step(fidx, step, wa)
+            self._resolve_pending_loops(force=self.fetch_delay == 0)
+
+    def _track_table(self, fidx: int, flat: np.ndarray, words: bool):
+        """Unpack a frame's host copy, extend the pose chain, the track
+        table and the statistics; returns the unpacked step."""
         step = self._packer.unpack(flat)
         R = np.asarray(step.R)
         t = np.asarray(step.t)
@@ -371,7 +424,7 @@ class SlamSystem:
         T_rel[:3, 3] = t
         self.poses.append(self.poses[-1] @ np.linalg.inv(T_rel))
 
-        if wa is not None:
+        if words:
             self._sightings_host = np.asarray(step.sightings)
 
         self.tracks.advance(
@@ -389,18 +442,7 @@ class SlamSystem:
             "scale": float(step.scale),
             "valid": bool(step.valid),
         })
-
-        # Apply the previous window's BA solve once it has landed.
-        self._apply_pending_ba()
-
-        if fidx >= 3 and self.ba_every and fidx % self.ba_every == 0:
-            self._dispatch_window_ba(fidx)
-            if self.fetch_delay == 0:
-                self._apply_pending_ba()
-
-        if self.enable_loop_closure:
-            self._keyframe_step(fidx, step, wa)
-        self._resolve_pending_loops(force=self.fetch_delay == 0)
+        return step
 
     # ------------------------------------------------------------------ #
 
@@ -424,15 +466,31 @@ class SlamSystem:
         return {tid: float(w[k]) for k, tid in enumerate(tids)}
 
     def _dispatch_window_ba(self, fidx: int) -> None:
+        with profiling.span("slam.ba.problem"):
+            problem = self._window_problem(fidx)
+        if problem is None:
+            self.counters["ba_skipped"] += 1
+            return
+        self.counters["ba_dispatched"] += 1
+        with profiling.span("slam.ba.dispatch"):
+            self._solve_window(*problem)
+
+    def _window_problem(self, fidx: int) -> Optional[tuple]:
+        """The window's frames and its observations from the track table,
+        or None when the window has too few frames or landmarks."""
         frames = self._window_frames(fidx)
         if len(frames) < 3:
-            return
+            return None
         uv, mask, tids = self.tracks.window_problem(
             frames, self.config.ba.max_landmarks, priorities=self._landmark_priorities())
         n_l = int((mask.sum(1) >= 2).sum())
         if n_l < self.BA_MIN_LANDMARKS:
-            return
+            return None
+        return frames, uv, mask, tids
 
+    def _solve_window(self, frames: List[int], uv, mask, tids) -> None:
+        """Triangulate the window's landmarks, upload the problem and enqueue
+        its solve; `_apply_pending_ba` reads the result."""
         # Camera-from-world poses for the window.
         T_w = np.stack([self.poses[f] for f in frames])
         T_cw = np.linalg.inv(T_w)
@@ -478,24 +536,25 @@ class SlamSystem:
     def _apply_pending_ba(self) -> None:
         if self._pending_ba is None:
             return
-        frames, fetch, uv, mask, tids, n_real = self._pending_ba
-        self._pending_ba = None
-        flat = fetch.result()
-        p = self.config.ba.num_poses
-        R_all = flat[: p * 9].reshape(p, 3, 3)
-        t_all = flat[p * 9: p * 12].reshape(p, 3)
-        X_all = flat[p * 12:].reshape(-1, 3)
-        # Write optimized poses back (cam-from-world -> cam-to-world).
-        for k, f in enumerate(frames):
-            T = np.eye(4)
-            T[:3, :3] = R_all[k].T
-            T[:3, 3] = -R_all[k].T @ t_all[k]
-            self.poses[f] = T
+        with profiling.span("slam.ba.apply"):
+            frames, fetch, uv, mask, tids, n_real = self._pending_ba
+            self._pending_ba = None
+            flat = fetch.result()
+            p = self.config.ba.num_poses
+            R_all = flat[: p * 9].reshape(p, 3, 3)
+            t_all = flat[p * 9: p * 12].reshape(p, 3)
+            X_all = flat[p * 12:].reshape(-1, 3)
+            # Write optimized poses back (cam-from-world -> cam-to-world).
+            for k, f in enumerate(frames):
+                T = np.eye(4)
+                T[:3, :3] = R_all[k].T
+                T[:3, 3] = -R_all[k].T @ t_all[k]
+                self.poses[f] = T
 
-        # Feed optimized structure back into the tracker's depth map: the
-        # scale chain re-anchors on BA-corrected depths instead of drifting
-        # on raw two-view triangulations.
-        self._feedback_landmarks(R_all, t_all, X_all, uv, mask, tids, n_real)
+            # Feed optimized structure back into the tracker's depth map: the
+            # scale chain re-anchors on BA-corrected depths instead of drifting
+            # on raw two-view triangulations.
+            self._feedback_landmarks(R_all, t_all, X_all, uv, mask, tids, n_real)
 
     # Depth write-back gates: landmarks must reproject within FB_ERR_PX in
     # the current frame and carry at least FB_MIN_OBS in-window observations.
@@ -607,33 +666,35 @@ class SlamSystem:
     def _keyframe_step(self, fidx: int, step, wa: torch.Tensor) -> None:
         if not self._is_keyframe(fidx, int(step.num_inliers)):
             return
-        self._last_kf = fidx
-        cfg = self.config.loop
-        slot = self.db.next_slot  # the global ring slot, in mesh mode too
-        if self.mesh is None:
-            res = lcd.query(self.db, wa, current_frame=fidx, min_frame_gap=cfg.min_frame_gap,
-                            min_score=cfg.min_score)
-            self.db = lcd.add_frame(self.db, wa, fidx)
-        else:
-            res = sharded_lcd.sharded_query(self.db, wa, self.mesh, fidx,
-                                            min_frame_gap=cfg.min_frame_gap, min_score=cfg.min_score)
-            self.db = sharded_lcd.sharded_add_frame(self.db, wa, fidx, self.mesh)
-        packed = torch.stack([res.best.to(torch.float32), res.best_frame.to(torch.float32),
-                              res.best_score])
-        cur_entry = {
-            "frame": fidx,
-            "desc": np.asarray(step.desc_top),
-            "xy": np.asarray(step.xy_new),
-            "mask": np.asarray(step.cells_new) >= 0,
-            # Metric feature depths in this keyframe's camera: the loop edge
-            # recovers its translation scale from these (depth ratio against
-            # the unit-baseline triangulation of the loop pair).
-            "depth": np.asarray(step.depth_top),
-            "depth_ok": np.asarray(step.depth_top_ok),
-        }
-        self.kf_store[slot] = cur_entry
-        self.kf_frames.append(fidx)
-        self._pending_loops.append((fidx, _HostCopy(packed), cur_entry))
+        self.counters["keyframes"] += 1
+        with profiling.span("slam.lcd"):
+            self._last_kf = fidx
+            cfg = self.config.loop
+            slot = self.db.next_slot  # the global ring slot, in mesh mode too
+            if self.mesh is None:
+                res = lcd.query(self.db, wa, current_frame=fidx, min_frame_gap=cfg.min_frame_gap,
+                                min_score=cfg.min_score)
+                self.db = lcd.add_frame(self.db, wa, fidx)
+            else:
+                res = sharded_lcd.sharded_query(self.db, wa, self.mesh, fidx,
+                                                min_frame_gap=cfg.min_frame_gap, min_score=cfg.min_score)
+                self.db = sharded_lcd.sharded_add_frame(self.db, wa, fidx, self.mesh)
+            packed = torch.stack([res.best.to(torch.float32), res.best_frame.to(torch.float32),
+                                  res.best_score])
+            cur_entry = {
+                "frame": fidx,
+                "desc": np.asarray(step.desc_top),
+                "xy": np.asarray(step.xy_new),
+                "mask": np.asarray(step.cells_new) >= 0,
+                # Metric feature depths in this keyframe's camera: the loop edge
+                # recovers its translation scale from these (depth ratio against
+                # the unit-baseline triangulation of the loop pair).
+                "depth": np.asarray(step.depth_top),
+                "depth_ok": np.asarray(step.depth_top_ok),
+            }
+            self.kf_store[slot] = cur_entry
+            self.kf_frames.append(fidx)
+            self._pending_loops.append((fidx, _HostCopy(packed), cur_entry))
 
     def _resolve_pending_loops(self, force: bool = False) -> None:
         """Read the LCD query results that have had `fetch_delay` frames to
@@ -652,8 +713,10 @@ class SlamSystem:
             matched_frame = int(r[1])
             if entry is None or entry["frame"] != matched_frame:
                 continue  # stale slot (overwritten since scoring): skip
-            accepted = self._verify_and_close_loop(entry, cur_entry, kf_frame, float(r[2]))
+            with profiling.span("slam.loop"):
+                accepted = self._verify_and_close_loop(entry, cur_entry, kf_frame, float(r[2]))
             if accepted:
+                self.counters["loops_accepted"] += 1
                 self.loop_events.append(accepted)
         self._pending_loops = remaining
 
@@ -662,10 +725,11 @@ class SlamSystem:
         verification's noise; its packed result on the host."""
         noise = self.verify_noise(self.verifications) if self.verify_noise else (None, None)
         self.verifications += 1
-        noise = [None if g is None else torch.as_tensor(g, device=self.device) for g in noise]
-        out = _verify_loop_device(torch.from_numpy(flat).to(self.device), self.config,
-                                  self.config.frontend.top_n, *noise, generator=self._verify_gen)
-        return out.cpu().numpy()
+        with profiling.span("slam.loop.verify"):
+            noise = [None if g is None else torch.as_tensor(g, device=self.device) for g in noise]
+            out = _verify_loop_device(torch.from_numpy(flat).to(self.device), self.config,
+                                      self.config.frontend.top_n, *noise, generator=self._verify_gen)
+            return out.cpu().numpy()
 
     def _verify_and_close_loop(self, entry: dict, cur_entry: dict, cur: int,
                                score: float) -> Optional[LoopClosureEvent]:
@@ -799,68 +863,76 @@ class SlamSystem:
             residuals.append(float(np.linalg.norm(T_ij[:3, 3] - t_lc)))
         if not residuals or max(residuals) < gate:
             return
+        self.counters["pose_graph_solves"] += 1
+        with profiling.span("slam.pose_graph"):
+            self._solve_skeleton_graph(matched_frame, cur)
 
-        nodes = self._skeleton_nodes(matched_frame, cur)
-        n = len(nodes)
-        node_pos = {f: k for k, f in enumerate(nodes)}
+    def _solve_skeleton_graph(self, matched_frame: int, cur: int) -> None:
+        """Build the skeleton's pose graph from raw odometry and the loop
+        edges, solve it on the device and move every pose with its node."""
+        with profiling.span("slam.pose_graph.build"):
+            nodes = self._skeleton_nodes(matched_frame, cur)
+            n = len(nodes)
+            node_pos = {f: k for k, f in enumerate(nodes)}
 
-        # Odometry edges between consecutive skeleton nodes: the composed raw
-        # relative motion, inverted to the graph's T_ci_cj convention.
-        edge_i, edge_j, R_meas, t_meas, weight = [], [], [], [], []
-        for k in range(n - 1):
-            a, b = nodes[k], nodes[k + 1]
-            T_ab = np.linalg.inv(self._compose_rel(a, b))
-            edge_i.append(k)
-            edge_j.append(k + 1)
-            R_meas.append(T_ab[:3, :3])
-            t_meas.append(T_ab[:3, 3])
-            weight.append(1.0)
-        # Every retained loop edge whose endpoints are skeleton nodes (they are
-        # forced into the node set).
-        for fi, fj, R_lc, t_lc in self.loop_edges:
-            if fi in node_pos and fj in node_pos:
-                edge_i.append(node_pos[fi])
-                edge_j.append(node_pos[fj])
-                R_meas.append(R_lc)
-                t_meas.append(t_lc)
-                weight.append(5.0)
+            # Odometry edges between consecutive skeleton nodes: the composed raw
+            # relative motion, inverted to the graph's T_ci_cj convention.
+            edge_i, edge_j, R_meas, t_meas, weight = [], [], [], [], []
+            for k in range(n - 1):
+                a, b = nodes[k], nodes[k + 1]
+                T_ab = np.linalg.inv(self._compose_rel(a, b))
+                edge_i.append(k)
+                edge_j.append(k + 1)
+                R_meas.append(T_ab[:3, :3])
+                t_meas.append(T_ab[:3, 3])
+                weight.append(1.0)
+            # Every retained loop edge whose endpoints are skeleton nodes (they are
+            # forced into the node set).
+            for fi, fj, R_lc, t_lc in self.loop_edges:
+                if fi in node_pos and fj in node_pos:
+                    edge_i.append(node_pos[fi])
+                    edge_j.append(node_pos[fj])
+                    R_meas.append(R_lc)
+                    t_meas.append(t_lc)
+                    weight.append(5.0)
 
-        # Pad nodes and edges to power-of-two buckets, as the JAX package
-        # does: dummy nodes are identity poses touched only by the LM
-        # damping; dummy edges carry weight 0.
-        n_pad = max(8, 1 << (n - 1).bit_length())
-        e_pad = n_pad + self.MAX_LOOP_EDGES + 8
-        T_old = np.stack([self.poses[f] for f in nodes])
-        T_old_p = np.concatenate([T_old, np.tile(np.eye(4), (n_pad - n, 1, 1))], axis=0)
-        ne = len(edge_i)
-        edge_i = np.pad(np.asarray(edge_i, np.int64), (0, e_pad - ne))
-        edge_j = np.pad(np.asarray(edge_j, np.int64), (0, e_pad - ne))
-        R_meas = np.concatenate([np.stack(R_meas), np.tile(np.eye(3), (e_pad - ne, 1, 1))], axis=0)
-        t_meas = np.concatenate([np.stack(t_meas), np.zeros((e_pad - ne, 3))], axis=0)
-        weight = np.pad(np.asarray(weight, np.float32), (0, e_pad - ne))
+            # Pad nodes and edges to power-of-two buckets, as the JAX package
+            # does: dummy nodes are identity poses touched only by the LM
+            # damping; dummy edges carry weight 0.
+            n_pad = max(8, 1 << (n - 1).bit_length())
+            e_pad = n_pad + self.MAX_LOOP_EDGES + 8
+            T_old = np.stack([self.poses[f] for f in nodes])
+            T_old_p = np.concatenate([T_old, np.tile(np.eye(4), (n_pad - n, 1, 1))], axis=0)
+            ne = len(edge_i)
+            edge_i = np.pad(np.asarray(edge_i, np.int64), (0, e_pad - ne))
+            edge_j = np.pad(np.asarray(edge_j, np.int64), (0, e_pad - ne))
+            R_meas = np.concatenate([np.stack(R_meas), np.tile(np.eye(3), (e_pad - ne, 1, 1))], axis=0)
+            t_meas = np.concatenate([np.stack(t_meas), np.zeros((e_pad - ne, 3))], axis=0)
+            weight = np.pad(np.asarray(weight, np.float32), (0, e_pad - ne))
 
-        def dev(a, dtype=torch.float32):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
+            def dev(a, dtype=torch.float32):
+                return torch.from_numpy(np.ascontiguousarray(a)).to(self.device, dtype)
 
-        graph = pose_graph.PoseGraph(
-            R=dev(T_old_p[:, :3, :3]), t=dev(T_old_p[:, :3, 3]),
-            edge_i=dev(edge_i, torch.int64), edge_j=dev(edge_j, torch.int64),
-            R_meas=dev(R_meas), t_meas=dev(t_meas), weight=dev(weight),
-        )
-        opt, _costs = pose_graph.optimize(graph, iterations=8)
-        R_new = opt.R.cpu().numpy()[:n]
-        t_new = opt.t.cpu().numpy()[:n]
-
-        # Rigid ride-along: every pose attaches to the nearest preceding
-        # skeleton node and moves by that node's correction.
-        T_new = np.tile(np.eye(4), (n, 1, 1))
-        T_new[:, :3, :3] = R_new
-        T_new[:, :3, 3] = t_new
-        deltas = T_new @ np.linalg.inv(T_old)  # (n, 4, 4) world-side
-        node_arr = np.asarray(nodes)
-        for f in range(len(self.poses)):
-            k = int(np.searchsorted(node_arr, f, side="right") - 1)
-            self.poses[f] = deltas[k] @ self.poses[f]
+            graph = pose_graph.PoseGraph(
+                R=dev(T_old_p[:, :3, :3]), t=dev(T_old_p[:, :3, 3]),
+                edge_i=dev(edge_i, torch.int64), edge_j=dev(edge_j, torch.int64),
+                R_meas=dev(R_meas), t_meas=dev(t_meas), weight=dev(weight),
+            )
+        with profiling.span("slam.pose_graph.solve"):
+            opt, _costs = pose_graph.optimize(graph, iterations=8)
+            R_new = opt.R.cpu().numpy()[:n]
+            t_new = opt.t.cpu().numpy()[:n]
+        with profiling.span("slam.pose_graph.apply"):
+            # Rigid ride-along: every pose attaches to the nearest preceding
+            # skeleton node and moves by that node's correction.
+            T_new = np.tile(np.eye(4), (n, 1, 1))
+            T_new[:, :3, :3] = R_new
+            T_new[:, :3, 3] = t_new
+            deltas = T_new @ np.linalg.inv(T_old)  # (n, 4, 4) world-side
+            node_arr = np.asarray(nodes)
+            for f in range(len(self.poses)):
+                k = int(np.searchsorted(node_arr, f, side="right") - 1)
+                self.poses[f] = deltas[k] @ self.poses[f]
 
     # ------------------------------------------------------------------ #
 

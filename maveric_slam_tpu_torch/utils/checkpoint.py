@@ -244,6 +244,7 @@ def restore(slam: "SlamSystem", path: str) -> None:
     slam.kf_frames = [int(f) for f in meta.get("kf_frames", [0])]
     slam._last_kf = int(meta.get("last_kf", 0))
     slam.verifications = int(meta.get("verifications", 0))
+    slam.counters = dict.fromkeys(slam.counters, 0)  # the counters count from here
     if "verify_generator" in arrays:
         slam._verify_gen = _generator(arrays["verify_generator"], dev)
 

@@ -3,8 +3,26 @@
 The reference marks regions with comments for external timing
 (/*** MEASURE THIS ***/, e.g. src/local_bundle_adjustment.c:153) and logs
 via printf. Here: wall-clock scopes with device synchronisation, running
-statistics, and torch.profiler traces viewable in TensorBoard or
-chrome://tracing.
+statistics, torch.profiler traces viewable in TensorBoard or
+chrome://tracing, and the program's own spans (`span`).
+
+Spans. The engine (slam.py), the tracker (frontend/tracker.py) and the
+pose graph (backend/pose_graph.py) name their stages with `span(name)`.
+A span measures the host: the time from entering the block to leaving it,
+which is the dispatch of its device work plus whatever the host waits for.
+A span that holds a host copy (`.cpu()`, `_HostCopy.result()`, or an
+upload of a host tensor, which PyTorch synchronises) measures the host's
+wait for the device's queued work there too. No span synchronises the
+device itself.
+
+- With no torch.profiler session active and no Timer recording, `span`
+  returns one shared `contextlib.nullcontext()`: no allocation and no clock
+  read.
+- Under torch.profiler, a span is a `record_function` range, in the trace
+  beside the aten operations and kernels and on their clock.
+- Under `Timer.recording()`, a span adds its host seconds to that Timer's
+  `totals` and `counts` under its name. A span inside another adds to both
+  names: totals are inclusive.
 """
 
 from __future__ import annotations
@@ -12,9 +30,12 @@ from __future__ import annotations
 import contextlib
 import time
 from collections import defaultdict
-from typing import Dict, Iterator
+from typing import Dict, Iterator, Optional
 
 import torch
+
+_NULL = contextlib.nullcontext()
+_recording: Optional["Timer"] = None  # the Timer that spans add into
 
 
 def _sync() -> None:
@@ -23,8 +44,40 @@ def _sync() -> None:
         torch.cuda.synchronize()
 
 
+class _Span:
+    __slots__ = ("name", "timer", "range", "t0")
+
+    def __init__(self, name: str, timer: Optional["Timer"], profiled: bool):
+        self.name, self.timer = name, timer
+        self.range = torch.profiler.record_function(name) if profiled else None
+
+    def __enter__(self) -> None:
+        if self.range is not None:
+            self.range.__enter__()
+        self.t0 = time.perf_counter()
+
+    def __exit__(self, *exc) -> bool:
+        if self.timer is not None:
+            self.timer.totals[self.name] += time.perf_counter() - self.t0
+            self.timer.counts[self.name] += 1
+        if self.range is not None:
+            self.range.__exit__(*exc)
+        return False
+
+
+def span(name: str):
+    """A context manager that marks one stage of the program as `name`
+    (see the module's docstring): a shared null context unless a
+    torch.profiler session is active or a Timer is recording."""
+    profiled = torch.autograd._profiler_enabled()
+    if _recording is None and not profiled:
+        return _NULL
+    return _Span(name, _recording, profiled)
+
+
 class Timer:
-    """Accumulating named timers with device-synchronised boundaries."""
+    """Accumulating named timers: `scope` blocks with device-synchronised
+    boundaries, and the program's spans while `recording`."""
 
     def __init__(self):
         self.totals: Dict[str, float] = defaultdict(float)
@@ -44,6 +97,18 @@ class Timer:
                 _sync()
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+
+    @contextlib.contextmanager
+    def recording(self) -> Iterator["Timer"]:
+        """Within the block, every program span adds its host time to this
+        Timer (no device synchronisation). Recordings nest: the Timer that
+        was recording before takes over again on exit."""
+        global _recording
+        prev, _recording = _recording, self
+        try:
+            yield self
+        finally:
+            _recording = prev
 
     def summary(self) -> Dict[str, Dict[str, float]]:
         return {
