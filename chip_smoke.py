@@ -5,7 +5,7 @@ NVIDIA GPU.
     python3 chip_smoke.py
 
 Phases, in order; any failure raises and exits non-zero:
-  1. build the five CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
+  1. build the six CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
      all sources at once), print the build time and ptxas's resource lines,
      and check that the stem's SASS holds tensor-core (IMMA) instructions;
   2. hold each kernel against its plain PyTorch version on the card, on
@@ -22,7 +22,11 @@ Phases, in order; any failure raises and exits non-zero:
      rank-8 matrices, n=4 at B=100; svd3 at B=256/64/1, at the batched
      step's B=4096/1024/16, on degenerate matrices, repeated singular values
      and scales 1e-4 and 1e4, each matrix bitwise the same alone as in its
-     batch), at the bars of ROADMAP.md;
+     batch), at the bars of ROADMAP.md; refine_pose at the step's S=1 and
+     S=16 (N=100) against the plain version run in float64 (within four
+     times the plain float32 version's own gap to it), num_used exact,
+     each pose of the S=16 call bitwise equal to the S=1 call and a rerun
+     bitwise equal;
   3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
      every launch count set to 0 just before and read just after; check the
      counts, the step statistics and the poses against the exact ground truth;
@@ -134,15 +138,17 @@ Phases, in order; any failure raises and exits non-zero:
      detector and matcher also at S=16, the nullspace and svd3 at every
      main-path shape of step 2, with the plain versions and
      torch.linalg.eigh / torch.linalg.svd at the svd3 and batched
-     nullspace shapes, and the nullspace and svd3 at the pairwise path's
-     inputs), each layer of the step alone with the host clock, the
+     nullspace shapes, the nullspace and svd3 at the pairwise path's
+     inputs, and refine_pose at S=1 and 16 with its floor, the same kernel
+     at 0 iterations), each layer of the step alone with the host clock, the
      batched step and the chunked tracker;
   7. then, under torch.profiler, each kernel's own device time (the stem,
-     detector and matcher also at S=16, the nullspace and svd3 at every
-     main-path shape of step 2), each layer's and each phase 5b call's
-     device-busy time and launches, the single and batched steps' and the
-     engine's device-busy shares, and one loop verification's (last, so
-     that no untraced timing runs after a profiler).
+     detector, matcher and refine_pose also at S=16, the nullspace and svd3
+     at every main-path shape of step 2; refine_pose's floor), each
+     layer's and each phase 5b call's device-busy time and launches, the
+     single and batched steps' and the engine's device-busy shares, and
+     one loop verification's (last, so that no untraced timing runs after
+     a profiler).
 The last three lines are the card's name and power limit, a JSON object of
 per-kernel numbers, and `{"ok": true, "device": {...}}`.
 
@@ -344,13 +350,15 @@ def phase_build():
 
 
 def kernel_inputs(dev, frames, noise, cfg, streams):
-    """The five kernels' inputs as the tracking step forms them, from frames
+    """The six kernels' inputs as the tracking step forms them, from frames
     0 and 1: the images for the stem, detector logits, match queries and
     cells, the 8-point normal matrices of the minimal, LO and refit stages,
-    and their nullspaces as 3x3 matrices for svd3; and the batched step's
-    stem images, detector logits and match inputs from the first two frames
-    of the 16 streams."""
-    from maveric_slam_tpu_torch.geometry import epipolar
+    their nullspaces as 3x3 matrices for svd3, and the pose refinement's
+    problem (RANSAC's pose, the triangulated points, the matches, the
+    depth-gated inliers); the batched step's stem images, detector logits
+    and match inputs from the first two frames of the 16 streams, and the
+    refinement's problem for every stream."""
+    from maveric_slam_tpu_torch.geometry import epipolar, ransac
     from maveric_slam_tpu_torch.models import superpoint as sp
     from maveric_slam_tpu_torch.ops import matching, softmax_topn as st
     from maveric_slam_tpu_torch.ops.kernels import detector, nullspace
@@ -386,6 +394,12 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
     ata_lo = normal(st.top_k(logits + glo, 16)[1])  # (64, 9, 9)
     w = m.mask[None] / torch.tensor([[1.0], [2.0], [4.0]], device=dev)
     ata_refit = normal(w=w.to(torch.float32))  # (3, 9, 9)
+    res = ransac.ransac_essential(p1, p2, m.mask, inlier_thresh=cfg.ransac.inlier_thresh,
+                                  num_hypotheses=cfg.ransac.num_hypotheses, gumbel_min=gmin,
+                                  gumbel_lo=glo)
+    X = epipolar.triangulate(res.R, res.t, p1, p2)
+    depth_ok = res.inliers & (X[..., 2] > 1e-3) & (X[..., 2] < 1e3)
+    pnp1 = tuple(x[None].contiguous() for x in (res.R, res.t, X, m.xy1, depth_ok))
     a4 = torch.from_numpy(np.random.default_rng(4).normal(size=(100, 4, 4)).astype(np.float32))
     ata4 = (a4 @ a4.transpose(-1, -2)).to(dev)  # (100, 4, 4), the DLT size
     E = [nullspace.nullspace_plain(a).reshape(-1, 3, 3) for a in (ata_min, ata_lo, ata_refit)]
@@ -432,6 +446,11 @@ def kernel_inputs(dev, frames, noise, cfg, streams):
         "svd3": [E[0], E[1], E[2][:1], degenerate.to(dev), 1e-4 * E[0], 1e4 * E[0]],
         # The batched step's calls at S = 16 (B = 4096, 1024, 16).
         "svd3_16": [e.expand(s, *e.shape).contiguous() for e in (E[0], E[1], E[2][:1])],
+        # refine_pose's arguments at S = 1, and at S = 16 the single step's
+        # problem for every stream.
+        "refine_pose": (K, *pnp1),
+        "refine_pose16": (K, *(x.expand(s, *x.shape[1:]).contiguous() for x in pnp1)),
+        "refine_kw": dict(huber_delta=cfg.ba.huber_delta, damping=cfg.ba.lm_damping),
     }
 
 
@@ -532,7 +551,7 @@ def _check_detector(semi, scale, **kw):
 
 def phase_kernels(inp):
     """Each kernel against its plain version on the same card inputs."""
-    from maveric_slam_tpu_torch.ops.kernels import match, nullspace, stem, svd3
+    from maveric_slam_tpu_torch.ops.kernels import match, nullspace, refine_pose, stem, svd3
 
     errs = {"fused_stem": 0.0}
     for label, img in inp["stem"].items():
@@ -623,6 +642,33 @@ def phase_kernels(inp):
                      f"svd3 of matrix {k} alone differs from its row in a batch")
     _log(f"[kernels] svd3: matrices alone equal their rows of the B={E.shape[0]} and "
          f"{tuple(E16.shape[:2])} calls bit for bit")
+    errs["refine_pose"] = 0.0
+    kw = inp["refine_kw"]
+    for args in (inp["refine_pose"], inp["refine_pose16"]):
+        got = refine_pose.refine_pose(*args, **kw)
+        plain = refine_pose.refine_pose_plain(*args, **kw)
+        f64 = refine_pose.refine_pose_plain(*(a.double() if a.is_floating_point() else a for a in args), **kw)
+        gaps = []
+        for name in ("R", "t", "cost"):
+            g, p, x = (getattr(r, name).double() for r in (got, plain, f64))
+            bar = 4 * float((p - x).abs().max()) + 8 * 2.0 ** -23 * max(1.0, float(x.abs().max()))
+            gaps.append((name, float((g - x).abs().max()), float((p - x).abs().max()), bar,
+                         float((g - p).abs().max())))
+            _require(gaps[-1][1] <= bar, f"refine_pose S={args[1].shape[0]} {name}: {gaps[-1]}")
+        _require(torch.equal(got.num_used, plain.num_used), f"refine_pose S={args[1].shape[0]}: num_used")
+        errs["refine_pose"] = max(errs["refine_pose"], *(d for *_, d in gaps[:2]))
+        _log(f"[kernels] refine_pose S={args[1].shape[0]} N={args[3].shape[1]} (one launch, "
+             f"{int(got.num_used[0])} factors used): " + "; ".join(
+                 f"{n}: |kernel - f64| {g:.3g}, |plain - f64| {p:.3g} (bar {b:.3g}), |kernel - plain| {d:.3g}"
+                 for n, g, p, b, d in gaps) + "; num_used equal")
+    one = refine_pose.refine_pose(*inp["refine_pose"], **kw)
+    many = refine_pose.refine_pose(*inp["refine_pose16"], **kw)
+    again = refine_pose.refine_pose(*inp["refine_pose16"], **kw)
+    _require(all(torch.equal(a, b) for a, b in zip(many, again)), "refine_pose: a rerun differs")
+    _require(all(torch.equal(a[0], b[k]) for a, b in zip(one, many) for k in range(b.shape[0])),
+             "refine_pose: a pose of the S=16 call differs from the S=1 call")
+    _log("[kernels] refine_pose: every pose of the S=16 call equals the S=1 call bit for bit; a rerun "
+         "is bitwise equal")
     torch.cuda.synchronize()
     return errs
 
@@ -764,7 +810,7 @@ def phase_batched(streams, noises, cfg):
     _log(f"[batched] S={s} at {H}x{W}, {n_steps} steps, kernels {json.dumps(launches)}")
     expected = {"detector_postproc": n_steps + 1, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": n_steps + 1}
+                "fused_stem": n_steps + 1, "refine_pose": n_steps}
     _require(launches == expected, f"batched launches {launches}, expected {expected}")
 
     worst, failures, tdirs = {"dR": 0.0, "dt": 0.0, "rot": 0.0}, [], []
@@ -839,7 +885,7 @@ def phase_chunk(frames, noises, cfg):
     _log(f"[chunk] chunk={CHUNK}, {n_steps} steps, kernels {json.dumps(launches)}")
     expected = {"detector_postproc": n_chunks + 1, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": n_chunks + 1}
+                "fused_stem": n_chunks + 1, "refine_pose": n_steps}
     _require(launches == expected, f"chunked launches {launches}, expected {expected}")
     single, _ = track(cuda, frames, noises, cfg)
     dR = max(float(np.abs(R - b["R"]).max()) for (R, _), b in zip(pipe.rel_poses, single))
@@ -1039,7 +1085,7 @@ def phase_pairwise(frames, poses, cfg):
     launches = kernels.launch_counts()
     n = len(PAIRS)
     per_call = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 4,
-                "svd3": 3, "fused_stem": 2}
+                "svd3": 3, "fused_stem": 2, "refine_pose": 0}
     _log(f"[pairwise] {len(PAIRS)} calls at {H}x{W}, K = M = {cfg.frontend.max_keypoints}, "
          f"kernels {json.dumps(launches)}")
     _require(launches == {k: v * n for k, v in per_call.items()},
@@ -1408,10 +1454,10 @@ def phase_slam(cfg, renders):
              f"{js if len(js) < 80 else f'{js[:3]} .. {js[-3:]}'}")
     expected = {"detector_postproc": n, "windowed_match": n - 1,
                 "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v, "svd3": 3 * (n - 1) + 3 * v,
-                "fused_stem": n}
+                "fused_stem": n, "refine_pose": n - 1}
     _log(f"[slam] {n} frames at {H}x{W}, {v} loop verifications, kernels {json.dumps(launches)} "
          f"(expected {json.dumps(expected)}: 1 stem, 1 detector a frame, 1 match, 4 nullspace, "
-         f"3 svd3 a tracked frame, 4 nullspace and 3 svd3 a verification)")
+         f"3 svd3, 1 refine_pose a tracked frame, 4 nullspace and 3 svd3 a verification)")
     _require(launches == expected, f"slam launches {launches}, expected {expected}")
 
     st = slam.stats
@@ -1568,7 +1614,7 @@ def phase_resume(cfg, run):
     launches = kernels.launch_counts()
     n, v = len(frames) - SLAM_SAVE_AT - 1, slam.verifications - restored_verifications
     expected = {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
-                "svd3": 3 * (n + v), "fused_stem": n}
+                "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n}
     _log(f"[resume] kernels over the {n} resumed frames and {v} verifications: {json.dumps(launches)}")
     _require(launches == expected, f"resume launches {launches}, expected {expected}")
     diff = _state_differences(run["slam"], slam)
@@ -1631,7 +1677,7 @@ def phase_elastic(cfg, frames):
         """Launches of `frames` processed frames, the first one's extraction only."""
         return {"detector_postproc": frames, "windowed_match": frames - 1,
                 "nullspace_inverse_iteration": 4 * (frames - 1), "svd3": 3 * (frames - 1),
-                "fused_stem": frames}
+                "fused_stem": frames, "refine_pose": frames - 1}
 
     def recovery_s(log, failed):
         """Restore + replay: the recovery and the steps after it up to the
@@ -2182,7 +2228,7 @@ def check_mesh_engine(label, runs, slam_run, cfg, gt, bitwise):
         e, v = r["engine"], r["engine"]["verifications"]
         expected = {"detector_postproc": n, "windowed_match": n - 1,
                     "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v,
-                    "svd3": 3 * (n - 1) + 3 * v, "fused_stem": n}
+                    "svd3": 3 * (n - 1) + 3 * v, "fused_stem": n, "refine_pose": n - 1}
         if e["launches"] != expected:
             failures.append(f"rank {r['rank']} launches {e['launches']}, expected {expected}")
     _log(f"[{label}] {len(runs)} rank(s) over {runs[0]['backend']} on {runs[0]['device']}, {n} "
@@ -2269,7 +2315,7 @@ def _record_differences(a, b):
 def _resume_launches(r):
     n, v = r["frames"], r["verifications"]
     return {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
-            "svd3": 3 * (n + v), "fused_stem": n}
+            "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n}
 
 
 def phase_mesh_resume(cfg, scene, runs, ckpt):
@@ -2637,8 +2683,18 @@ def _match_work(cells, c, kw):
     return nq * (256 + 4 + 8) + s * c * (256 + 8), 2 * 256 * (pairs + nq + s * c), pairs
 
 
+def _refine_pose_work(s, n, iterations=8):
+    """(bytes, f32 operations) of refine_pose on S poses of N factors: K,
+    the poses, X, z and the mask read once, R, t, cost and num_used written
+    once; 235 operations a factor an iteration (transform, residual, Huber
+    weight, Jacobian, its terms of the 27 sums), 340 a pose an iteration
+    (Cholesky, the two substitutions, se3_exp, the update) and 37 a factor
+    for the final cost."""
+    return 36 + s * (48 + 21 * n + 56), s * (iterations * (235 * n + 340) + 37 * n)
+
+
 def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, refine_pose, stem, svd3
 
     semi, scale = inp["detector"]
     c = semi.shape[0]
@@ -2654,6 +2710,8 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
     img16 = inp["stem"]["(16, 192, 640) streams"]
     sargs = inp["stem_args"]
     st_bytes, st_ops = _stem_work(*img1.shape)
+    rp1, rkw = inp["refine_pose"], inp["refine_kw"]
+    rp_bytes, rp_ops = _refine_pose_work(1, rp1[3].shape[1])
     spec = [
         dict(name="fused_stem", src="stem.cu", replaces="maveric_slam_tpu/ops/pallas_kernels.py:737",
              kern=lambda: stem.fused_stem(img1, *sargs),
@@ -2682,6 +2740,13 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
              lib=lambda: torch.linalg.svd(E),
              names=("svd3_kernel",), bytes=b3 * (9 + 9 + 3 + 9) * 4,
              ops=b3 * SVD3_OPS, rate=F32_OPS_PER_S, shape=f"B={b3}"),
+        dict(name="refine_pose", src="refine_pose.cu",
+             replaces="none, new in the port (maveric_slam_tpu/geometry/pnp.py refine_pose, jnp)",
+             kern=lambda: refine_pose.refine_pose(*rp1, **rkw),
+             plain=lambda: refine_pose.refine_pose_plain(*rp1, **rkw), lib=None,
+             floor=lambda: refine_pose.refine_pose(*rp1, **rkw, iterations=0),
+             names=("refine_pose_kernel",), bytes=rp_bytes, ops=rp_ops, rate=F32_OPS_PER_S,
+             shape=f"S=1 N={rp1[3].shape[1]}"),
     ]
     for k in spec:
         k.update(launches=launches[k["name"]], err=errs[k["name"]])
@@ -2705,6 +2770,7 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
         kern2 = _event_ms(k["kern"], 500)
         plain2 = _event_ms(k["plain"], 50)
         lib = _event_ms(k["lib"], 200) if k["lib"] else None
+        floor = _event_ms(k["floor"], 500) if k.get("floor") else None
         row = {
             "name": k["name"], "route": "cuda",
             "source": f"maveric_slam_tpu_torch/csrc/{k['src']}", "replaces": k["replaces"],
@@ -2713,9 +2779,13 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
             "bound_ms": bound, "bound_by": bound_by,
             "library_ms": lib, "device_ms": None, "shape": k["shape"],
         }
+        if floor is not None:
+            row["floor_ms"] = floor
         _log(f"[timing] {k['name']} ({k['shape']}): call {kern1:.4f}/{kern2:.4f} ms, "
              f"plain {plain1:.4f}/{plain2:.4f} ms, "
-             f"library {lib if lib is None else f'{lib:.4f}'} ms, bound {row['bound_ms']:.2e} ms "
+             f"library {lib if lib is None else f'{lib:.4f}'} ms, "
+             + ("" if floor is None else f"floor (0 iterations) {floor:.4f} ms, ")
+             + f"bound {row['bound_ms']:.2e} ms "
              f"({row['bound_by']}: {k['bytes']} B, {k['ops']} ops)")
         out.append(row)
     b16, o16 = _stem_work(*img16.shape)
@@ -2747,6 +2817,13 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
              f"plain {_event_ms(lambda a=a: svd3.svd3_plain(a), 5):.4f} ms, library "
              f"{_event_ms(lambda a=a: torch.linalg.svd(a), 50):.4f} ms (torch.linalg.svd), bound "
              f"{bound:.2e} ms ({by})")
+    rp16 = inp["refine_pose16"]
+    bound, by = _bound(*_refine_pose_work(rp16[1].shape[0], rp16[3].shape[1]), F32_OPS_PER_S)
+    _log(f"[timing] refine_pose (S={rp16[1].shape[0]} N={rp16[3].shape[1]}): call "
+         f"{_event_ms(lambda: refine_pose.refine_pose(*rp16, **rkw), 500):.4f} ms, plain "
+         f"{_event_ms(lambda: refine_pose.refine_pose_plain(*rp16, **rkw), 20):.4f} ms, floor (0 "
+         f"iterations) {_event_ms(lambda: refine_pose.refine_pose(*rp16, **rkw, iterations=0), 500):.4f} "
+         f"ms, bound {bound:.2e} ms ({by})")
     for a in inp["nullspace16"]:
         b = a.numel() // 81
         bound, by = _bound(b * (81 + 9) * 4, b * _nullspace_ops(9), F32_OPS_PER_S)
@@ -2793,11 +2870,18 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     pairwise and backend calls' device-busy time and launches, the single
     and batched steps' device-busy shares and heaviest kernels, and the
     engine's."""
-    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, stem, svd3
+    from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, refine_pose, stem, svd3
 
     for row, k in zip(rows, spec):
         row["device_ms"] = _device_ms(k["kern"], k["names"])
         _log(f"[traced] {row['name']}: device {row['device_ms']} ms/launch")
+    rkw = inp["refine_kw"]
+    for args in (inp["refine_pose"], inp["refine_pose16"]):
+        dev_ms = _device_ms(lambda args=args: refine_pose.refine_pose(*args, **rkw), ("refine_pose_kernel",))
+        floor_ms = _device_ms(lambda args=args: refine_pose.refine_pose(*args, **rkw, iterations=0),
+                              ("refine_pose_kernel",))
+        _log(f"[traced] refine_pose (S={args[1].shape[0]} N={args[3].shape[1]}): device {dev_ms} "
+             f"ms/launch; floor (0 iterations) device {floor_ms} ms/launch")
     for a in inp["nullspace"][1:] + inp["nullspace16"]:
         dev_ms = _device_ms(lambda a=a: nullspace.nullspace_inverse_iteration(a), ("nullspace_kernel",))
         _log(f"[traced] nullspace {tuple(a.shape)}: device {dev_ms} ms/launch")
@@ -2984,7 +3068,7 @@ def phase_surface(cfg, frames, pw_inp):
          f"on the matrices with (s1 - |s2|) / s0 >= {SURFACE_GAP}): {json.dumps(dec)}; recover_pose: "
          f"{json.dumps(rec)}; counts median {float(card['recover'][2].float().median()):.0f}")
     expected = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 0, "svd3": 3,
-                "fused_stem": 0}
+                "fused_stem": 0, "refine_pose": 0}
     bars = ("ortho", "det", "|t|", "half turn", "fit", "pair", "t")
     checks = [
         (launches == expected, f"launches {launches}, expected {expected}"),
@@ -3054,7 +3138,7 @@ def _surface_lo_rounds(cfg, pw_inp):
     (g, launches), (c, _) = out["card"], out["cpu"]
     extra = SURFACE_LO_ROUNDS - 1
     expected = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 4 + extra,
-                "svd3": 3 + extra, "fused_stem": 0}
+                "svd3": 3 + extra, "fused_stem": 0, "refine_pose": 0}
     drot = _rot_deg(g.R.numpy(), c.R.numpy())
     _log(f"[surface] ransac_essential(lo_rounds={SURFACE_LO_ROUNDS}) on pair {PAIRS[0]}'s "
          f"{int(pw_inp['mask'].sum())} matches: kernels {json.dumps(launches)} (expected "
@@ -3097,7 +3181,7 @@ def phase_degenerate(cfg, frames):
     noise = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
              for _ in range(4)]
     per_step = {"fused_stem": 1, "detector_postproc": 1, "windowed_match": 1,
-                "nullspace_inverse_iteration": 4, "svd3": 3}
+                "nullspace_inverse_iteration": 4, "svd3": 3, "refine_pose": 1}
 
     def run(dev, seq):
         tr = Tracker(sp.load_params(device=dev), cfg, device=dev)
@@ -3427,7 +3511,7 @@ def main():
     n_steps = len(steps)
     expected = {"detector_postproc": N_FRAMES, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": N_FRAMES}
+                "fused_stem": N_FRAMES, "refine_pose": n_steps}
     _require(launches == expected, f"launches {launches}, expected {expected}")
     check_poses(steps, gt_R, gt_t, "track")
 

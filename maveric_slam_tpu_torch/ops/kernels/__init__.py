@@ -5,7 +5,7 @@ tensors and takes the plain PyTorch version beside it only for CPU tensors,
 and a plain integer `launches` that the wrapper raises by one per launch.
 """
 
-from . import detector, match, nullspace, stem, svd3
+from . import detector, match, nullspace, refine_pose, stem, svd3
 
 MODULES = {
     "detector_postproc": detector,
@@ -13,6 +13,7 @@ MODULES = {
     "nullspace_inverse_iteration": nullspace,
     "svd3": svd3,
     "fused_stem": stem,
+    "refine_pose": refine_pose,
 }
 
 

@@ -37,7 +37,7 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maveric_slam_tpu_torch"
-SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu", "stem.cu")
+SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu", "stem.cu", "refine_pose.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -53,6 +53,7 @@ _SIGNATURES = {
     "nullspace_inverse_iteration": (_P, _P, _I, _I, _I, _P),
     "svd3": (_P, _P, _P, _P, _I, _I, _P),
     "fused_stem": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "refine_pose": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P),
 }
 
 _lib: ctypes.CDLL | None = None

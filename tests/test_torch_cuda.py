@@ -15,11 +15,12 @@ import os
 import numpy as np
 import pytest
 import torch
+from pnp_problems import pnp_problem
 
 from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops import softmax_topn as st
-from maveric_slam_tpu_torch.ops.kernels import _build, detector, match, nullspace, stem, svd3
+from maveric_slam_tpu_torch.ops.kernels import _build, detector, match, nullspace, refine_pose, stem, svd3
 
 pytestmark = pytest.mark.cuda
 
@@ -629,7 +630,8 @@ def test_pairwise_pose_card_vs_cpu(cuda):
         out[dev] = (r, kernels.launch_counts())
     (c, _), (g, launches) = out["cpu"], out["cuda"]
     assert launches == {"detector_postproc": 0, "windowed_match": 0,
-                        "nullspace_inverse_iteration": 4, "svd3": 3, "fused_stem": 2}
+                        "nullspace_inverse_iteration": 4, "svd3": 3, "fused_stem": 2,
+                        "refine_pose": 0}
     assert int(g.num_matches) == int(c.num_matches) and int(g.num_inliers) == int(c.num_inliers)
     cos = (torch.trace(g.R.cpu().T @ c.R) - 1) / 2
     assert float(torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))) < 0.01
@@ -810,3 +812,102 @@ def test_superpoint_float_card_vs_cpu(cuda):
     for k in range(2):
         g, c, x = out["card"][k], out["cpu"][k], out["f64"][k]
         assert float((g - x).abs().max()) <= 2 * float((c - x).abs().max())
+
+
+# The pose refinement's kernel against its plain version, on the problems
+# of tests/pnp_problems.py. Bars: the kernel in float32 sums in another
+# order than the plain version's batched products, so it is held to the
+# plain version run in float64 on the same inputs, within four times the
+# plain float32 version's own gap to it plus eight float32 ulps of the
+# quantity's scale.
+
+def _amax(x):
+    return float(x.abs().max()) if x.numel() else 0.0
+
+
+def _check_refine_pose(args):
+    """Kernel against plain: R, t and cost at the bars above, num_used
+    exactly, one launch. Returns the kernel's result on the CPU."""
+    before = refine_pose.launches
+    got = refine_pose.refine_pose(*(a.cuda() for a in args))
+    torch.cuda.synchronize()
+    assert refine_pose.launches == before + 1
+    plain = refine_pose.refine_pose_plain(*(a.cuda() for a in args))
+    f64 = refine_pose.refine_pose_plain(*(a.cuda().double() if a.is_floating_point() else a.cuda()
+                                          for a in args))
+    got, plain, f64 = (type(r)(*(x.cpu() for x in r)) for r in (got, plain, f64))
+    for name in ("R", "t", "cost"):
+        g, p, x = (getattr(r, name).double() for r in (got, plain, f64))
+        finite = torch.isfinite(x)
+        assert torch.equal(torch.isfinite(g), finite), name
+        ulp = float(torch.finfo(torch.float32).eps)
+        bar = 4 * _amax((p - x)[finite]) + 8 * ulp * max(1.0, _amax(x[finite]))
+        assert _amax((g - x)[finite]) <= bar, (name, _amax((g - x)[finite]), bar)
+    assert got.num_used.dtype == torch.int32 and torch.equal(got.num_used, plain.num_used)
+    return got
+
+
+@pytest.mark.parametrize("s, n", [(16, 100), (1, 100), (3, 37), (2, 300)])
+def test_refine_pose(cuda, s, n):
+    """The main path's calls (S = 16 and 1 of N = 100), a ragged N and
+    N > 128 (the block-stride loop past the registers' first factor)."""
+    _check_refine_pose(pnp_problem(s, n, seed=s * 1000 + n))
+
+
+def test_refine_pose_edge_cases(cuda):
+    """A row with every mask false comes back unchanged (cost 0, num_used
+    0); points at or behind z = 0 (the 1e-6 clamp) within the bars; a NaN
+    in R0 gives NaN in that row's R and t, as the plain version does, and
+    leaves the other rows as they are alone; N = 0."""
+    K, R0, t0, X, z, mask = pnp_problem(4, 100, seed=5)
+    mask[1] = False
+    X[2, :10, 2] = -X[2, :10, 2]
+    X[2, 10:20, 2] = 0.0
+    R0[3, 0, 1] = float("nan")
+    got = _check_refine_pose((K, R0, t0, X, z, mask))
+    assert torch.equal(got.R[1], R0[1]) and torch.equal(got.t[1], t0[1])
+    assert float(got.cost[1]) == 0.0 and int(got.num_used[1]) == 0
+    assert torch.isnan(got.R[3]).all() and torch.isnan(got.t[3]).all()
+    for k in (0, 1, 2):
+        alone = refine_pose.refine_pose(*(a.cuda() for a in (K, R0[k:k + 1], t0[k:k + 1], X[k:k + 1],
+                                                           z[k:k + 1], mask[k:k + 1])))
+        assert all(torch.equal(a[0].cpu(), b[k]) for a, b in zip(alone, got)), k
+    empty = refine_pose.refine_pose(*(a.cuda() for a in (K, R0, t0, X[:, :0], z[:, :0], mask[:, :0])))
+    assert torch.equal(empty.R[:3].cpu(), R0[:3]) and torch.equal(empty.t.cpu(), t0)
+    assert not empty.cost.any() and not empty.num_used.any()
+
+
+def test_refine_pose_deterministic_and_batch_invariant(cuda):
+    """Two runs are bitwise equal, and stream s of an S = 16 call equals an
+    S = 1 call on its inputs bit for bit (the bitwise resume and mesh
+    replays rely on both)."""
+    args = tuple(a.cuda() for a in pnp_problem(16, 100, seed=6))
+    first, second = refine_pose.refine_pose(*args), refine_pose.refine_pose(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    for k in range(16):
+        alone = refine_pose.refine_pose(args[0], *(a[k:k + 1] for a in args[1:]))
+        assert all(torch.equal(a[0], b[k]) for a, b in zip(alone, first)), k
+
+
+def test_tracker_step_launches_refine_pose_once(cuda):
+    """A tracker step on the card makes exactly one refine_pose launch,
+    whatever S: `Tracker` at S = 1 and `track_step_batched` at S = 3."""
+    from maveric_slam_tpu_torch.frontend import tracker as trk
+    from maveric_slam_tpu_torch.ops import kernels
+
+    cfg, fr = _config96(), _orbit96(range(4))
+    params = sp.load_params(device=cuda)
+    tr = trk.Tracker(params, cfg, seed=0, device=cuda)
+    tr.process(fr[0])
+    for k in (1, 2, 3):
+        kernels.reset_launch_counts()
+        tr.process(fr[k])
+        torch.cuda.synchronize()
+        assert kernels.launch_counts()["refine_pose"] == 1, k
+    imgs = torch.from_numpy(np.stack([fr[0], fr[1], fr[2]])).to(cuda)
+    state = trk.init_states_batched(params, imgs, cfg)
+    kernels.reset_launch_counts()
+    nxt = torch.from_numpy(np.stack([fr[1], fr[2], fr[3]])).to(cuda)
+    state, res = trk.track_step_batched(params, state, nxt, cfg)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts()["refine_pose"] == 1 and res.R.shape == (3, 3, 3)
