@@ -4,10 +4,16 @@ saves it as .npy, optionally with a match visualization.
 
 Usage:
   python -m maveric_slam_tpu_torch.cli.pairwise IMG0 IMG1 [--outfile out.npy]
-      [--viz matches.png] [--seed N] [--device cpu]
+      [--viz matches.png] [--seed N] [--device cpu] [--matcher dot|lightglue]
 
 It runs on the CUDA device unless `--device cpu` is given; `--seed` seeds
-the torch.Generator that draws the RANSAC samples.
+the torch.Generator that draws the RANSAC samples. Both matchers run
+through the batched pairwise path (`pairwise.pairwise_pose_batched`, one
+pair): `--matcher dot` is the one-way best-dot match, `--matcher lightglue`
+LightGlue (`models/lightglue.py`) at full depth and width with weights
+drawn from `LightGlueConfig.weights_seed` (its published weights are not in
+the repository), which also prints its counters. A pair with fewer than
+sample_size matches reads not valid, with the identity pose.
 """
 
 import argparse
@@ -23,13 +29,15 @@ def main(argv=None) -> None:
     parser.add_argument("--viz", default=None, help="save match visualization")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--device", default=None, help="torch device (default: cuda)")
+    parser.add_argument("--matcher", choices=("dot", "lightglue"), default="dot")
     args = parser.parse_args(argv)
 
     import torch
 
-    from ..config import DEFAULT_CONFIG
+    from ..config import DEFAULT_CONFIG, LightGlueConfig
     from ..data import kitti
     from ..frontend import pairwise
+    from ..models import lightglue
     from ..models import superpoint as sp
     from ..ops.backend import resolve_device
 
@@ -41,10 +49,16 @@ def main(argv=None) -> None:
     t0, t1 = torch.from_numpy(img0).to(dev), torch.from_numpy(img1).to(dev)
 
     gen = torch.Generator(device=dev).manual_seed(args.seed)
-    res = pairwise.pairwise_pose(params, t0, t1, cfg, generator=gen)
-    R, t = res.R.cpu().numpy(), res.t.cpu().numpy()
+    matcher = "dot" if args.matcher == "dot" else lightglue.LightGlue(LightGlueConfig(), dev)
+    f0 = pairwise.extract_features(params, t0[None], cfg)
+    f1 = pairwise.extract_features(params, t1[None], cfg)
+    res = pairwise.pairwise_pose_batched(f0, f1, cfg, matcher, generator=gen)
+    if args.matcher == "lightglue":
+        print(f"lightglue counters: {matcher.counters}")
+    R, t = res.R[0].cpu().numpy(), res.t[0].cpu().numpy()
     T = np.hstack([R, t[:, None]])
-    print(f"matches: {int(res.num_matches)}  inliers: {int(res.num_inliers)}")
+    print(f"matches: {int(res.num_matches[0])}  inliers: {int(res.num_inliers[0])}  "
+          f"valid: {bool(res.valid[0])}")
     print("Rotation matrix R:")
     print(R)
     print("Translation vector t (unit):")
@@ -55,17 +69,12 @@ def main(argv=None) -> None:
         np.save(args.outfile, T)
         print(f"saved {args.outfile}")
     if args.viz:
-        from ..frontend import extractor
-        from ..ops import matching
         from ..utils import visualization
 
-        f0 = extractor.extract_golden(params, t0, cfg)
-        f1 = extractor.extract_golden(params, t1, cfg)
-        m = matching.nn_match_dot(f0.desc, f1.desc, f0.mask, f1.mask,
-                                  dot_thresh=cfg.matcher.dot_thresh)
-        visualization.draw_matches(img0, img1, f0.xy.cpu().numpy(),
-                                   f1.xy.cpu().numpy()[m.index.cpu().numpy()],
-                                   m.mask.cpu().numpy(), out_path=args.viz)
+        matches = res.matches[0].long().cpu().numpy()
+        visualization.draw_matches(img0, img1, f0.xy[0].cpu().numpy(),
+                                   f1.xy[0].cpu().numpy()[np.maximum(matches, 0)],
+                                   matches >= 0, out_path=args.viz)
         print(f"saved {args.viz}")
 
 

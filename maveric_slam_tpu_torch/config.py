@@ -107,6 +107,27 @@ class MatcherConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class LightGlueConfig:
+    """LightGlue, the learned matcher of the pairwise path (models/lightglue.py):
+    the `superpoint` settings of cvg/LightGlue's `default_conf`
+    (arXiv:2306.13643). Its published weights are not in the repository, so
+    the weights are drawn from `weights_seed`; adaptive depth and width need
+    them, so both confidences are -1 (off), the only value the model takes
+    (published: depth_confidence 0.95, width_confidence 0.99). Not a field
+    of SlamConfig, which stays the JAX package's twin (the JAX package has
+    no learned matcher); pass it to the model."""
+
+    input_dim: int = 256
+    descriptor_dim: int = 256
+    n_layers: int = 9
+    num_heads: int = 4  # a head is descriptor_dim / num_heads = 64 wide
+    filter_threshold: float = 0.1  # a match needs exp(log-assignment) above it
+    depth_confidence: float = -1.0  # early exit off: every layer runs
+    width_confidence: float = -1.0  # point pruning off: every point is kept
+    weights_seed: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
 class RansacConfig:
     """Essential-matrix RANSAC. The reference ran 10 scalar iterations
     (src/tracking_main.c:210); on TPU hypotheses are free, so we vmap many."""

@@ -79,17 +79,18 @@ def windowed_match(
 
 
 class NNMatches(NamedTuple):
-    index: torch.Tensor  # (Na,) int32 best match in B
-    score: torch.Tensor  # (Na,) float32 dot product (nn_match_dot) or L2 distance (two-way)
-    mask: torch.Tensor  # (Na,) bool
+    index: torch.Tensor  # ([P,] Na) int32 best match in B
+    score: torch.Tensor  # ([P,] Na) float32 dot product (nn_match_dot) or L2 distance (two-way)
+    mask: torch.Tensor  # ([P,] Na) bool
 
 
 def nn_match_dot(descA: torch.Tensor, descB: torch.Tensor, maskA: torch.Tensor,
                  maskB: torch.Tensor, dot_thresh: float = 0.8) -> NNMatches:
-    """One-way best-dot match of L2-normalized (Na, D) against (Nb, D)."""
-    dots = torch.where(maskB[None, :], descA @ descB.T, -torch.inf)
+    """One-way best-dot match of L2-normalized (..., Na, D) against
+    (..., Nb, D); leading axes are independent pairs."""
+    dots = torch.where(maskB[..., None, :], descA @ descB.transpose(-1, -2), -torch.inf)
     idx = torch.argmax(dots, dim=-1)
-    score = torch.take_along_dim(dots, idx[:, None], dim=-1)[:, 0]
+    score = torch.take_along_dim(dots, idx[..., None], dim=-1)[..., 0]
     return NNMatches(index=idx.to(torch.int32), score=score, mask=maskA & (score > dot_thresh))
 
 

@@ -45,7 +45,7 @@ for _var in ("OMP_NUM_THREADS", "MKL_NUM_THREADS", "OPENBLAS_NUM_THREADS"):
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
 
-PREFIXES = ("slam.", "tracker.", "pose_graph.")
+PREFIXES = ("slam.", "tracker.", "pose_graph.", "pairwise.", "lightglue.")
 SYNC_CALLS = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaEventSynchronize", "cudaMemcpy",
               "cudaMemcpyAsync")
 SELF = ("slam.process", "slam.consume", "tracker.step")
