@@ -2,12 +2,14 @@
 """Smoke run of the PyTorch/CUDA port (`maveric_slam_tpu_torch`) on one
 NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--qconv]
 
+(`--qconv`: the build and the qconv phase alone, then its profiler numbers.)
 Phases, in order; any failure raises and exits non-zero:
-  1. build the six CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
+  1. build the seven CUDA kernels from `maveric_slam_tpu_torch/csrc` (nvcc,
      all sources at once), print the build time and ptxas's resource lines,
-     and check that the stem's SASS holds tensor-core (IMMA) instructions;
+     and check that the stem's and qconv's SASS hold tensor-core (IMMA)
+     instructions;
   2. hold each kernel against its plain PyTorch version on the card, on
      inputs taken from the tracking step at 192x640 (stem bitwise at
      (1, 192, 640), (16, 192, 640), (2, 36, 44), (1, 6, 10) and on all-0/all-1
@@ -26,7 +28,11 @@ Phases, in order; any failure raises and exits non-zero:
      S=16 (N=100) against the plain version run in float64 (within four
      times the plain float32 version's own gap to it), num_used exact,
      each pose of the S=16 call bitwise equal to the S=1 call and a rerun
-     bitwise equal;
+     bitwise equal; [qconv] the ten layers after the stem bitwise equal to
+     the plain version at the net calls (1, 192, 640), (16, 192, 640) and
+     (16, 376, 1240), on orbit activations and seeded int8 inputs, each
+     layer and the ten timed (call, plain, floor: one copy of the input,
+     bound);
   3. drive `Tracker` over a synthetic orbit at 192x640 (the main path) with
      every launch count set to 0 just before and read just after; check the
      counts, the step statistics and the poses against the exact ground truth;
@@ -196,6 +202,7 @@ TAIL_SPREAD = ((2.85e-3, 0.0401), (4.2e-5, 3.93e-3), (2.45e-5, 4.2e-3), (5e-5, 0
                (9.78e-6, 3.13e-4), (7.45e-5, 6.38e-3), (3.22e-5, 3.42e-3), (4.33e-3, 0.283),
                (2.05e-4, 0.01), (3.17e-6, 0.019))
 CHUNK, CHUNK_FRAMES = 8, 17  # the chunked phase: two full chunks after the first frame
+QCONV = 10  # ops.kernels.qconv launches a SuperPoint call: the ten layers after the stem
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12  # int8, dense
@@ -347,6 +354,11 @@ def phase_build():
     _log(f"[build] stem_kernel SASS: {json.dumps(counts)} (IMMA: conv1b on the int8 tensor cores; "
          f"IDP: conv1a's dp4a; LDSM: ldmatrix)")
     _require(counts["IMMA"] > 0, "stem_kernel has no tensor-core (IMMA) instruction")
+    code = _build.sass("qconv_kernel")
+    counts = {op: code.count(op) for op in ("IMMA", "LDSM", "LDGSTS")}
+    _log(f"[build] qconv_kernel SASS (its eight instantiations): {json.dumps(counts)} (IMMA: the "
+         f"int8 tensor cores; LDSM: ldmatrix; LDGSTS: cp.async)")
+    _require(counts["IMMA"] > 0, "qconv_kernel has no tensor-core (IMMA) instruction")
 
 
 def kernel_inputs(dev, frames, noise, cfg, streams):
@@ -547,6 +559,121 @@ def _check_detector(semi, scale, **kw):
     torch.testing.assert_close(xy[v], xyp[v], rtol=0, atol=1e-3)
     dxy = float((xy[v] - xyp[v]).abs().max()) if bool(v.any()) else 0.0
     return got, float((p - pp).abs().max()), dxy
+
+
+QCONV_SIZES = ((1, 192, 640), (16, 192, 640), (16, 376, 1240))  # the main path's net calls
+QCONV_FOCAL = {192: FOCAL, 376: 1550.0}  # slam_bench's sp_kitti_376x1240 camera at 376 rows
+
+
+def qconv_layers(params, images):
+    """The ten layers after the stem on `images` (S, H, W), each fed the
+    kernel's own output of the layer before: [(name, x, args, relu, pool)],
+    args = `superpoint.qconv_args`."""
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops.kernels import qconv, stem
+
+    spec = {name: (relu, pool) for name, _, relu, pool in sp._AFTER_STEM}
+    layers = []
+
+    def run(x, name):
+        args = sp.qconv_args(params, name)
+        layers.append((name, x, args) + spec[name])
+        return qconv.qconv(x, *args, relu=spec[name][0], pool=spec[name][1])
+
+    x = stem.fused_stem(images, *sp.stem_args(params))
+    for name in sp._ENCODER[2:]:
+        x = run(x, name)
+    run(run(x, "convPa"), "convPb")
+    run(run(x, "convDa"), "convDb")
+    return layers
+
+
+def _qconv_work(x, args, pool):
+    """(bytes, int8 operations) of one qconv layer: input, weights, bias
+    and output once; 2 k^2 cin cout operations a (pre-pool) pixel."""
+    w, b, _, k = args
+    s, h, wd, cin = x.shape
+    out = s * (h // 2) * (wd // 2) if pool else s * h * wd
+    return x.numel() + w.numel() + 4 * b.numel() + out * b.numel(), 2 * s * h * wd * cin * b.numel() * k * k
+
+
+def qconv_images(size):
+    """Orbit frames at `size` (S, H, W): stream s at orbit phase 12 s."""
+    from maveric_slam_tpu_torch.data import synthetic
+
+    s, h, w = size
+    f = QCONV_FOCAL[h]
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    poses = synthetic.orbit_poses(ORBIT_N if h == H else 372)
+    return torch.from_numpy(np.stack([synthetic.render_box_room(K, poses[12 * k], h, w)
+                                      for k in range(s)])).cuda()
+
+
+def phase_qconv():
+    """The qconv kernel against its plain version, bit for bit, at every
+    layer of the main path's net calls (QCONV_SIZES), on orbit activations
+    and on seeded int8 inputs of the same shapes; then each layer's and the
+    ten's call ms (CUDA events), plain ms, floor (one copy of the layer's
+    input) and bound. Returns {size: [(name, call, plain call, x, args,
+    pool)]}, the calls for the profiler."""
+    from maveric_slam_tpu_torch.models import superpoint as sp
+    from maveric_slam_tpu_torch.ops.kernels import qconv
+
+    params = sp.load_params(device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    calls = {}
+    for size in QCONV_SIZES:
+        layers = qconv_layers(params, qconv_images(size))
+        rows, total = [], {"call": 0.0, "plain": 0.0, "floor": 0.0, "bound": 0.0, "bytes": 0, "ops": 0}
+        calls[size] = []
+        for name, x, args, relu, pool in layers:
+            seeded = torch.randint(0, 128, x.shape, dtype=torch.int8, device="cuda", generator=gen)
+            for label, inp in (("orbit", x), ("seeded", seeded)):
+                got = qconv.qconv(inp, *args, relu=relu, pool=pool)
+                ref = qconv.qconv_plain(inp, *args, relu=relu, pool=pool)
+                torch.cuda.synchronize()
+                _require(torch.equal(got, ref), f"qconv {name} at {size} on {label} input: not bitwise "
+                                                f"equal to the plain version")
+            call = (lambda x=x, args=args, relu=relu, pool=pool:
+                    qconv.qconv(x, *args, relu=relu, pool=pool))
+            plain_call = (lambda x=x, args=args, relu=relu, pool=pool:
+                          qconv.qconv_plain(x, *args, relu=relu, pool=pool))
+            calls[size].append((name, call, plain_call, x, args, pool))
+            nbytes, ops = _qconv_work(x, args, pool)
+            bound, by = _bound(nbytes, ops, INT8_OPS_PER_S)
+            plain = _event_ms(plain_call, 5)
+            kern = _event_ms(call, 50)
+            floor = _event_ms(lambda x=x: x.clone(), 50)
+            for key, v in (("call", kern), ("plain", plain), ("floor", floor), ("bound", bound),
+                           ("bytes", nbytes), ("ops", ops)):
+                total[key] += v
+            _log(f"[qconv] {size} {name} {tuple(x.shape)} -> {tuple(ref.shape)}: bitwise equal on orbit "
+                 f"and seeded inputs ({100 * float((ref != 0).float().mean()):.1f}% nonzero); call "
+                 f"{kern:.4f} ms, plain {plain:.4f} ms, floor (input copy) {floor:.4f} ms, bound "
+                 f"{bound:.2e} ms ({by}: {nbytes} B, {ops} ops), {ops / kern / 1e9:.1f} TOP/s")
+        ten = _event_ms(lambda layers=calls[size]: [c() for _, c, _, _, _, _ in layers], 20)
+        _log(f"[qconv] {size} the ten layers: sum of calls {total['call']:.4f} ms, back to back "
+             f"{ten:.4f} ms, plain {total['plain']:.4f} ms, floor {total['floor']:.4f} ms, bound "
+             f"{total['bound']:.4f} ms ({total['bytes']} B, {total['ops']} ops), "
+             f"{total['ops'] / ten / 1e9:.1f} TOP/s")
+    torch.cuda.empty_cache()  # the plain path's im2col at 376 (~7.8 GB cached) is not needed again
+    return calls
+
+
+def qconv_traced(calls):
+    """Each layer's and the ten's device ms per call (torch.profiler)."""
+    for size, layers in calls.items():
+        total = 0.0
+        for name, call, _, x, args, pool in layers:
+            dev = _device_ms(call, ("qconv_kernel",), 20)
+            nbytes, ops = _qconv_work(x, args, pool)
+            bound = _bound(nbytes, ops, INT8_OPS_PER_S)[0]
+            total += dev or 0.0
+            rate = "" if dev is None else f", {ops / dev / 1e9:.1f} TOP/s, {100 * bound / dev:.1f}% of its bound"
+            _log(f"[traced] qconv {size} {name}: device {dev} ms/launch{rate}")
+        ten, count = _kernel_events(lambda layers=layers: [c() for _, c, _, _, _, _ in layers], 10)
+        _log(f"[traced] qconv {size} the ten layers: device {total:.4f} ms (sum of layers); back to "
+             f"back device busy {ten:.4f} ms/call, {count:.0f} kernels/call")
 
 
 def phase_kernels(inp):
@@ -810,7 +937,7 @@ def phase_batched(streams, noises, cfg):
     _log(f"[batched] S={s} at {H}x{W}, {n_steps} steps, kernels {json.dumps(launches)}")
     expected = {"detector_postproc": n_steps + 1, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": n_steps + 1, "refine_pose": n_steps}
+                "fused_stem": n_steps + 1, "refine_pose": n_steps, "qconv": QCONV * (n_steps + 1)}
     _require(launches == expected, f"batched launches {launches}, expected {expected}")
 
     worst, failures, tdirs = {"dR": 0.0, "dt": 0.0, "rot": 0.0}, [], []
@@ -885,7 +1012,7 @@ def phase_chunk(frames, noises, cfg):
     _log(f"[chunk] chunk={CHUNK}, {n_steps} steps, kernels {json.dumps(launches)}")
     expected = {"detector_postproc": n_chunks + 1, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": n_chunks + 1, "refine_pose": n_steps}
+                "fused_stem": n_chunks + 1, "refine_pose": n_steps, "qconv": QCONV * (n_chunks + 1)}
     _require(launches == expected, f"chunked launches {launches}, expected {expected}")
     single, _ = track(cuda, frames, noises, cfg)
     dR = max(float(np.abs(R - b["R"]).max()) for (R, _), b in zip(pipe.rel_poses, single))
@@ -1085,7 +1212,7 @@ def phase_pairwise(frames, poses, cfg):
     launches = kernels.launch_counts()
     n = len(PAIRS)
     per_call = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 4,
-                "svd3": 3, "fused_stem": 2, "refine_pose": 0}
+                "svd3": 3, "fused_stem": 2, "refine_pose": 0, "qconv": 2 * QCONV}
     _log(f"[pairwise] {len(PAIRS)} calls at {H}x{W}, K = M = {cfg.frontend.max_keypoints}, "
          f"kernels {json.dumps(launches)}")
     _require(launches == {k: v * n for k, v in per_call.items()},
@@ -1454,7 +1581,7 @@ def phase_slam(cfg, renders):
              f"{js if len(js) < 80 else f'{js[:3]} .. {js[-3:]}'}")
     expected = {"detector_postproc": n, "windowed_match": n - 1,
                 "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v, "svd3": 3 * (n - 1) + 3 * v,
-                "fused_stem": n, "refine_pose": n - 1}
+                "fused_stem": n, "refine_pose": n - 1, "qconv": QCONV * n}
     _log(f"[slam] {n} frames at {H}x{W}, {v} loop verifications, kernels {json.dumps(launches)} "
          f"(expected {json.dumps(expected)}: 1 stem, 1 detector a frame, 1 match, 4 nullspace, "
          f"3 svd3, 1 refine_pose a tracked frame, 4 nullspace and 3 svd3 a verification)")
@@ -1614,7 +1741,7 @@ def phase_resume(cfg, run):
     launches = kernels.launch_counts()
     n, v = len(frames) - SLAM_SAVE_AT - 1, slam.verifications - restored_verifications
     expected = {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
-                "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n}
+                "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n, "qconv": QCONV * n}
     _log(f"[resume] kernels over the {n} resumed frames and {v} verifications: {json.dumps(launches)}")
     _require(launches == expected, f"resume launches {launches}, expected {expected}")
     diff = _state_differences(run["slam"], slam)
@@ -1677,7 +1804,7 @@ def phase_elastic(cfg, frames):
         """Launches of `frames` processed frames, the first one's extraction only."""
         return {"detector_postproc": frames, "windowed_match": frames - 1,
                 "nullspace_inverse_iteration": 4 * (frames - 1), "svd3": 3 * (frames - 1),
-                "fused_stem": frames, "refine_pose": frames - 1}
+                "fused_stem": frames, "refine_pose": frames - 1, "qconv": QCONV * frames}
 
     def recovery_s(log, failed):
         """Restore + replay: the recovery and the steps after it up to the
@@ -2228,7 +2355,8 @@ def check_mesh_engine(label, runs, slam_run, cfg, gt, bitwise):
         e, v = r["engine"], r["engine"]["verifications"]
         expected = {"detector_postproc": n, "windowed_match": n - 1,
                     "nullspace_inverse_iteration": 4 * (n - 1) + 4 * v,
-                    "svd3": 3 * (n - 1) + 3 * v, "fused_stem": n, "refine_pose": n - 1}
+                    "svd3": 3 * (n - 1) + 3 * v, "fused_stem": n, "refine_pose": n - 1,
+                    "qconv": QCONV * n}
         if e["launches"] != expected:
             failures.append(f"rank {r['rank']} launches {e['launches']}, expected {expected}")
     _log(f"[{label}] {len(runs)} rank(s) over {runs[0]['backend']} on {runs[0]['device']}, {n} "
@@ -2315,7 +2443,7 @@ def _record_differences(a, b):
 def _resume_launches(r):
     n, v = r["frames"], r["verifications"]
     return {"detector_postproc": n, "windowed_match": n, "nullspace_inverse_iteration": 4 * (n + v),
-            "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n}
+            "svd3": 3 * (n + v), "fused_stem": n, "refine_pose": n, "qconv": QCONV * n}
 
 
 def phase_mesh_resume(cfg, scene, runs, ckpt):
@@ -2748,6 +2876,14 @@ def phase_timing(inp, launches, errs, pw_per_call, pw_inp):
              names=("refine_pose_kernel",), bytes=rp_bytes, ops=rp_ops, rate=F32_OPS_PER_S,
              shape=f"S=1 N={rp1[3].shape[1]}"),
     ]
+    ql = inp["qconv"]  # the ten layers at (1, H, W)
+    q_work = [_qconv_work(x, args, pool) for _, _, _, x, args, pool in ql]
+    spec.append(dict(
+        name="qconv", src="qconv.cu",
+        replaces="none, new in the port (the layers after the stem, XLA convolutions in the JAX package)",
+        kern=lambda: [c() for _, c, _, _, _, _ in ql], plain=lambda: [p() for _, _, p, _, _, _ in ql],
+        lib=None, names=("qconv_kernel",), bytes=sum(b for b, _ in q_work), ops=sum(o for _, o in q_work),
+        rate=INT8_OPS_PER_S, shape=f"S=1 {H}x{W}, the ten layers after the stem (10 launches)"))
     for k in spec:
         k.update(launches=launches[k["name"]], err=errs[k["name"]])
     # The pairwise path's launch shapes: its minimal hypotheses at M = 1000.
@@ -2875,6 +3011,7 @@ def phase_traced(rows, spec, layers, frames, noises, cfg, inp, streams, noises_b
     for row, k in zip(rows, spec):
         row["device_ms"] = _device_ms(k["kern"], k["names"])
         _log(f"[traced] {row['name']}: device {row['device_ms']} ms/launch")
+    qconv_traced(inp["qconv_calls"])
     rkw = inp["refine_kw"]
     for args in (inp["refine_pose"], inp["refine_pose16"]):
         dev_ms = _device_ms(lambda args=args: refine_pose.refine_pose(*args, **rkw), ("refine_pose_kernel",))
@@ -3068,7 +3205,7 @@ def phase_surface(cfg, frames, pw_inp):
          f"on the matrices with (s1 - |s2|) / s0 >= {SURFACE_GAP}): {json.dumps(dec)}; recover_pose: "
          f"{json.dumps(rec)}; counts median {float(card['recover'][2].float().median()):.0f}")
     expected = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 0, "svd3": 3,
-                "fused_stem": 0, "refine_pose": 0}
+                "fused_stem": 0, "refine_pose": 0, "qconv": 0}
     bars = ("ortho", "det", "|t|", "half turn", "fit", "pair", "t")
     checks = [
         (launches == expected, f"launches {launches}, expected {expected}"),
@@ -3138,7 +3275,7 @@ def _surface_lo_rounds(cfg, pw_inp):
     (g, launches), (c, _) = out["card"], out["cpu"]
     extra = SURFACE_LO_ROUNDS - 1
     expected = {"detector_postproc": 0, "windowed_match": 0, "nullspace_inverse_iteration": 4 + extra,
-                "svd3": 3 + extra, "fused_stem": 0, "refine_pose": 0}
+                "svd3": 3 + extra, "fused_stem": 0, "refine_pose": 0, "qconv": 0}
     drot = _rot_deg(g.R.numpy(), c.R.numpy())
     _log(f"[surface] ransac_essential(lo_rounds={SURFACE_LO_ROUNDS}) on pair {PAIRS[0]}'s "
          f"{int(pw_inp['mask'].sum())} matches: kernels {json.dumps(launches)} (expected "
@@ -3181,7 +3318,7 @@ def phase_degenerate(cfg, frames):
     noise = [(ransac.gumbel((k, m), gen, "cpu"), ransac.gumbel((ransac.lo_hypotheses(k), m), gen, "cpu"))
              for _ in range(4)]
     per_step = {"fused_stem": 1, "detector_postproc": 1, "windowed_match": 1,
-                "nullspace_inverse_iteration": 4, "svd3": 3, "refine_pose": 1}
+                "nullspace_inverse_iteration": 4, "svd3": 3, "refine_pose": 1, "qconv": QCONV}
 
     def run(dev, seq):
         tr = Tracker(sp.load_params(device=dev), cfg, device=dev)
@@ -3206,7 +3343,7 @@ def phase_degenerate(cfg, frames):
         card, launches = run(torch.device("cuda"), seq)
         cpu, _ = run(torch.device("cpu"), seq)
         want = {n: c * (len(seq) - 1) for n, c in per_step.items()}
-        want.update(fused_stem=len(seq), detector_postproc=len(seq))
+        want.update(fused_stem=len(seq), detector_postproc=len(seq), qconv=QCONV * len(seq))
         for j, (g, c) in enumerate(zip(card, cpu)):
             _log(f"[degenerate] {name} step {j}: valid {g['valid']}/{c['valid']} (card/CPU), matches "
                  f"{g['matches']}/{c['matches']}, inliers {g['inliers']}/{c['inliers']}, finite "
@@ -3471,6 +3608,10 @@ def main():
          f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
     t_all = time.perf_counter()
     phase_build()
+    if "--qconv" in sys.argv[1:]:  # the qconv kernel alone: bitwise, timed, traced
+        qconv_traced(_phased("qconv", phase_qconv))
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0)}}))
+        return
 
     cfg = _config()
     orbit = synthetic.orbit_poses(ORBIT_N)
@@ -3500,6 +3641,8 @@ def main():
 
     inp = kernel_inputs(cuda, frames, noises[0], cfg, [f for f, _ in streams])
     errs = _phased("kernels", phase_kernels, inp)
+    inp["qconv_calls"] = _phased("qconv", phase_qconv)
+    inp["qconv"], errs["qconv"] = inp["qconv_calls"][(1, H, W)], 0.0
 
     kernels.reset_launch_counts()
     steps, times = track(cuda, frames[:N_FRAMES], noises, cfg)
@@ -3511,7 +3654,7 @@ def main():
     n_steps = len(steps)
     expected = {"detector_postproc": N_FRAMES, "windowed_match": n_steps,
                 "nullspace_inverse_iteration": 4 * n_steps, "svd3": 3 * n_steps,
-                "fused_stem": N_FRAMES, "refine_pose": n_steps}
+                "fused_stem": N_FRAMES, "refine_pose": n_steps, "qconv": QCONV * N_FRAMES}
     _require(launches == expected, f"launches {launches}, expected {expected}")
     check_poses(steps, gt_R, gt_t, "track")
 

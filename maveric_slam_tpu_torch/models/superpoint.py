@@ -17,7 +17,11 @@ CPU tests hold it bitwise against the JAX package.
 
 Stage 1 (conv1a, conv1b, 2x2 pool) runs by default as the fused stem
 kernel (`ops/kernels/stem.py`, CUDA `csrc/stem.cu`; its plain version, the
-layered stage 1, on the CPU), bitwise equal to the layered path.
+layered stage 1, on the CPU), bitwise equal to the layered path. Each layer
+after it is one `ops.kernels.qconv.qconv` call on int8 NHWC: on CUDA
+tensors an int8 tensor-core implicit GEMM with the requant (and conv2b's
+and conv3b's pool) in its epilogue (`csrc/qconv.cu`), on CPU tensors the
+f32-carried im2col path above, so both are bitwise equal to it.
 
 The float path (`superpoint_float`, the dequantized weights `{name}_wf`) is
 `lax.conv` outside any Pallas kernel in the JAX package; here it is the
@@ -36,11 +40,21 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.backend import resolve_device
+from ..ops.kernels import qconv as qconv_kernel
 from ..ops.kernels import stem as stem_kernel
 
 _ENCODER = ["conv1a", "conv1b", "conv2a", "conv2b", "conv3a", "conv3b", "conv4a", "conv4b"]
 _HEADS = ["convPa", "convPb", "convDa", "convDb"]
 LAYERS = _ENCODER + _HEADS
+# The layers after the stem: (name, the layer whose output scale is its
+# input's scale, relu, 2x2 pool after it).
+_AFTER_STEM = [
+    ("conv2a", "conv1b", True, False), ("conv2b", "conv2a", True, True),
+    ("conv3a", "conv2b", True, False), ("conv3b", "conv3a", True, True),
+    ("conv4a", "conv3b", True, False), ("conv4b", "conv4a", True, False),
+    ("convPa", "conv4b", True, False), ("convPb", "convPa", False, False),
+    ("convDa", "conv4b", True, False), ("convDb", "convDa", False, False),
+]
 
 # The weights file shipped with the JAX package, read by path (not imported).
 DEFAULT_WEIGHTS = os.path.join(
@@ -91,6 +105,25 @@ def _with_stem(params: Params) -> Params:
     return params
 
 
+def _with_qconv(params: Params) -> Params:
+    """Adds each later layer's arguments of `ops.kernels.qconv.qconv`, formed
+    once here: `{name}_qw` its weight layout, `{name}_qb` and `{name}_qm` its
+    requant constants (`_requant_consts`, as `_qconv` forms them a call)."""
+    for name, src, _, _ in _AFTER_STEM:
+        b, m = _requant_consts(params[f"{src}_oscale"], params[f"{name}_wscale"],
+                               params[f"{name}_b"], params[f"{name}_oscale"])
+        params.update({f"{name}_qw": qconv_kernel.qconv_weights(params[f"{name}_w"]),
+                       f"{name}_qb": b, f"{name}_qm": m})
+    return params
+
+
+def qconv_args(params: Params, name: str):
+    """The arguments after the activations of `ops.kernels.qconv.qconv` for
+    layer `name`: weights, quantized bias, multiplier, kernel size."""
+    return (params[f"{name}_qw"], params[f"{name}_qb"], params[f"{name}_qm"],
+            params[f"{name}_w"].shape[-1])
+
+
 def stem_args(params: Params):
     """The arguments after the images of `ops.kernels.stem.fused_stem`."""
     return (params["stem_w1a"], params["stem_w1b"], params["input_scale"], params["stem_b1"],
@@ -106,7 +139,7 @@ def load_params(path: str | None = None, device=None) -> Params:
     for name in LAYERS:
         params.update(_layer_params(name, raw[f"{name}_w"], raw[f"{name}_b"],
                                     raw[f"{name}_wscale"], raw[f"{name}_oscale"], dev))
-    return _with_stem(params)
+    return _with_qconv(_with_stem(params))
 
 
 def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
@@ -123,7 +156,7 @@ def params_from_numpy(jax_params: Dict[str, np.ndarray], device=None) -> Params:
                                     jax_params[f"{name}_wscale"],
                                     jax_params[f"{name}_oscale"], dev,
                                     None if wf is None else np.transpose(np.asarray(wf), (3, 2, 0, 1))))
-    return _with_stem(params)
+    return _with_qconv(_with_stem(params))
 
 
 def _requant(acc, in_scale, w_scale, bias, out_scale, relu: bool):
@@ -195,24 +228,19 @@ def superpoint_int8(params: Params, images: torch.Tensor, stem: str = "auto"):
         raise ValueError(f"stem must be 'auto' or 'off', got {stem!r}")
     even = images.shape[-2] % 2 == 0 and images.shape[-1] % 2 == 0
     stage1 = stem_kernel.fused_stem if stem == "auto" and even else stem_kernel.fused_stem_plain
-    x = stage1(images, *stem_args(params)).permute(0, 3, 1, 2).to(torch.float32)  # NCHW
-    sc = params["conv1b_oscale"]
-    x, sc = _qconv(x, params, "conv2a", sc, True)
-    x, sc = _qconv(x, params, "conv2b", sc, True)
-    x = F.max_pool2d(x, 2)
-    x, sc = _qconv(x, params, "conv3a", sc, True)
-    x, sc = _qconv(x, params, "conv3b", sc, True)
-    x = F.max_pool2d(x, 2)
-    x, sc = _qconv(x, params, "conv4a", sc, True)
-    x, sc = _qconv(x, params, "conv4b", sc, True)
-    pa, sca = _qconv(x, params, "convPa", sc, True)
-    semi_q, semi_scale = _qconv(pa, params, "convPb", sca, False)
-    da, scd = _qconv(x, params, "convDa", sc, True)
-    desc_q, desc_scale = _qconv(da, params, "convDb", scd, False)
+    x = stage1(images, *stem_args(params))  # (N, H/2, W/2, 64) int8 NHWC
+    layers = {name: (relu, pool) for name, _, relu, pool in _AFTER_STEM}
+
+    def layer(x, name):
+        relu, pool = layers[name]
+        return qconv_kernel.qconv(x, *qconv_args(params, name), relu=relu, pool=pool)
+
+    for name in _ENCODER[2:]:
+        x = layer(x, name)
     return (
-        semi_q.permute(0, 2, 3, 1).to(torch.int8).contiguous(),
-        desc_q.permute(0, 2, 3, 1).to(torch.int8).contiguous(),
-        {"semi_scale": semi_scale, "desc_scale": desc_scale},
+        layer(layer(x, "convPa"), "convPb"),
+        layer(layer(x, "convDa"), "convDb"),
+        {"semi_scale": params["convPb_oscale"], "desc_scale": params["convDb_oscale"]},
     )
 
 

@@ -5,7 +5,7 @@ tensors and takes the plain PyTorch version beside it only for CPU tensors,
 and a plain integer `launches` that the wrapper raises by one per launch.
 """
 
-from . import detector, match, nullspace, refine_pose, stem, svd3
+from . import detector, match, nullspace, qconv, refine_pose, stem, svd3
 
 MODULES = {
     "detector_postproc": detector,
@@ -14,6 +14,7 @@ MODULES = {
     "svd3": svd3,
     "fused_stem": stem,
     "refine_pose": refine_pose,
+    "qconv": qconv,
 }
 
 

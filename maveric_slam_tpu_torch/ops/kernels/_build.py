@@ -37,7 +37,8 @@ import torch
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "maveric_slam_tpu_torch"
-SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu", "stem.cu", "refine_pose.cu")
+SOURCES = ("detector.cu", "match.cu", "nullspace.cu", "svd3.cu", "stem.cu", "refine_pose.cu",
+           "qconv.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-fmad=false", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -54,6 +55,7 @@ _SIGNATURES = {
     "svd3": (_P, _P, _P, _P, _I, _I, _P),
     "fused_stem": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "refine_pose": (_P, _P, _P, _P, _P, _P, _I, _I, _F, _F, _I, _P, _P, _P, _P, _P),
+    "qconv": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P),
 }
 
 _lib: ctypes.CDLL | None = None

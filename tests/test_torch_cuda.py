@@ -20,7 +20,8 @@ from pnp_problems import pnp_problem
 from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops import softmax_topn as st
-from maveric_slam_tpu_torch.ops.kernels import _build, detector, match, nullspace, refine_pose, stem, svd3
+from maveric_slam_tpu_torch.ops.kernels import (_build, detector, match, nullspace, qconv, refine_pose, stem,
+                                                svd3)
 
 pytestmark = pytest.mark.cuda
 
@@ -561,6 +562,110 @@ def test_stem_saturating(cuda, stem_params):
     assert torch.equal(stem.fused_stem(img, *args), stem.fused_stem_plain(img, *args))
 
 
+# The net calls of the main path (one stream and the 16-stream step at
+# 192x640 and 376x1240), one no tile divides, and one whose pools round down.
+QCONV_SIZES = [(1, 192, 640), (16, 192, 640), (1, 376, 1240), (16, 376, 1240), (2, 24, 40), (1, 14, 18)]
+
+
+def _qconv_images(size):
+    """Orbit frames (stream s at orbit phase 12 s) at the main path's sizes,
+    seeded noise otherwise."""
+    s, h, w = size
+    if h not in (192, 376):
+        return np.random.default_rng(h * w).random(size, dtype=np.float32)
+    f, n = (800.0, 192) if h == 192 else (1550.0, 372)
+    K = np.array([[f, 0, w / 2], [0, f, h / 2], [0, 0, 1]], np.float32)
+    poses = synthetic.orbit_poses(n)
+    return np.stack([synthetic.render_box_room(K, poses[12 * k], h, w) for k in range(s)])
+
+
+@pytest.fixture(scope="module")
+def card_params(cuda):
+    return sp.load_params(device=cuda)
+
+
+@pytest.mark.parametrize("size", QCONV_SIZES)
+def test_qconv_bitwise(cuda, card_params, size):
+    """Every layer after the stem, kernel against plain version on the card,
+    bit for bit: on the net's own activations of orbit frames (each layer
+    fed the kernel's output of the one before) and on seeded int8 inputs of
+    the same shapes."""
+    relu_pool = {name: (relu, pool) for name, _, relu, pool in sp._AFTER_STEM}
+    gen = torch.Generator(device=cuda).manual_seed(size[0] * size[1])
+
+    def run(x, name):
+        relu, pool = relu_pool[name]
+        args = sp.qconv_args(card_params, name)
+        seeded = torch.randint(0, 128, x.shape, dtype=torch.int8, device=cuda, generator=gen)
+        outs = [qconv.qconv(inp, *args, relu=relu, pool=pool) for inp in (x, seeded)]
+        for inp, got in zip((x, seeded), outs):
+            ref = qconv.qconv_plain(inp, *args, relu=relu, pool=pool)
+            assert got.shape == ref.shape and torch.equal(got, ref), (name, tuple(inp.shape))
+        return outs[0]
+
+    x = stem.fused_stem(torch.from_numpy(_qconv_images(size)).to(cuda), *sp.stem_args(card_params))
+    for name in sp._ENCODER[2:]:
+        x = run(x, name)
+    run(run(x, "convPa"), "convPb")
+    run(run(x, "convDa"), "convDb")
+
+
+@pytest.mark.parametrize("name", ["conv2b", "conv3b", "convPb"])
+def test_qconv_negative_multiplier(cuda, card_params, name):
+    """A negative requant multiplier (the pool then takes the minimum sum),
+    with and without the ReLU."""
+    args = list(sp.qconv_args(card_params, name))
+    args[2] = -args[2]
+    cin = card_params[f"{name}_w"].shape[1]
+    x = torch.randint(0, 128, (2, 10, 18, cin), dtype=torch.int8, device=cuda,
+                      generator=torch.Generator(device=cuda).manual_seed(7))
+    pool = name != "convPb"
+    for relu in (True, False):
+        got = qconv.qconv(x, *args, relu=relu, pool=pool)
+        assert torch.equal(got, qconv.qconv_plain(x, *args, relu=relu, pool=pool)), relu
+
+
+def test_int8_net_card_equals_cpu_192x640(cuda, card_params):
+    """The net through the stem and qconv kernels on the card equals the
+    CPU's f32-carried path at (2, 192, 640)."""
+    img = torch.from_numpy(_qconv_images((2, 192, 640)))
+    semi_c, desc_c, _ = sp.superpoint_int8(sp.load_params(device="cpu"), img)
+    semi_g, desc_g, _ = sp.superpoint_int8(card_params, img.to(cuda))
+    assert torch.equal(semi_g.cpu(), semi_c) and torch.equal(desc_g.cpu(), desc_c)
+
+
+def test_qconv_launches_ten_a_net_call(cuda, card_params):
+    """A net call launches the stem once and the qconv kernel once a layer."""
+    img = torch.from_numpy(_qconv_images((1, 192, 640))).to(cuda)
+    before = (stem.launches, qconv.launches)
+    sp.superpoint_int8(card_params, img)
+    torch.cuda.synchronize()
+    assert (stem.launches - before[0], qconv.launches - before[1]) == (1, 10)
+
+
+def test_qconv_net_runs_no_im2col_or_f32_gemm(cuda, card_params):
+    """Under torch.profiler a net call on the card runs the stem and the
+    qconv kernels and no im2col or GEMM kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    img = torch.from_numpy(_qconv_images((16, 192, 640))).to(cuda)
+    sp.superpoint_int8(card_params, img)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        sp.superpoint_int8(card_params, img)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("qconv_kernel" in n for n in names) == 10 and any("stem_kernel" in n for n in names)
+    assert not [n for n in names if "im2col" in n.lower() or "gemm" in n.lower()], names
+
+
+def test_qconv_kernel_on_tensor_cores(cuda):
+    """The built qconv_kernel's SASS holds IMMA (mma.sync s8) instructions."""
+    code = _build.sass("qconv_kernel")
+    assert code, "qconv_kernel not found in the built library"
+    assert "IMMA" in code
+
+
 def test_batched_detector_and_match(image0, cuda):
     """(S, C, 65) and (S, N) inputs, one launch each, against the plain
     versions, per stream: stream 1 is stream 0 with noise added."""
@@ -631,7 +736,7 @@ def test_pairwise_pose_card_vs_cpu(cuda):
     (c, _), (g, launches) = out["cpu"], out["cuda"]
     assert launches == {"detector_postproc": 0, "windowed_match": 0,
                         "nullspace_inverse_iteration": 4, "svd3": 3, "fused_stem": 2,
-                        "refine_pose": 0}
+                        "refine_pose": 0, "qconv": 20}
     assert int(g.num_matches) == int(c.num_matches) and int(g.num_inliers) == int(c.num_inliers)
     cos = (torch.trace(g.R.cpu().T @ c.R) - 1) / 2
     assert float(torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))) < 0.01
