@@ -133,12 +133,10 @@ Phases, in order; any failure raises and exits non-zero:
      matching images, closures after three wraps, the pose graph's node set
      subsampled, a finite trajectory; wall a frame), then the fault-repair
      pair (270 frames, black frames 88-92, loop closure on and off: the
-     drift from the first epoch); [bench] the port's bench
-     (`maveric_slam_tpu_torch.bench`: headline.py's modes, suite.py's five
-     one-card measurements, profile.py's roofline) at its smallest rounds
-     (the engine at its full 80 frames, which it needs to close a loop),
-     its validity checks passing (the engine's loop closed), every number
-     finite and positive, and every device-busy time given by the profiler;
+     drift from the first epoch); [bench] the port's roofline profile
+     (`maveric_slam_tpu_torch.bench.profile`) at its smallest rounds, every
+     number finite and positive, and every device-busy time given by the
+     profiler;
   6. time each kernel, its plain version and a one-call PyTorch yardstick
      where there is one (never used by the port) with CUDA events (the stem,
      detector and matcher also at S=16, the nullspace and svd3 at every
@@ -3541,46 +3539,23 @@ def _numbers(x, path=""):
 
 
 def phase_bench():
-    """The port's bench (`maveric_slam_tpu_torch.bench`) at its smallest
-    rounds: headline.py's modes (one stream, 16 and 32 streams, chunks of
-    8, the CPU baseline), suite.py's five one-card measurements and
-    profile.py's roofline. Each mode's own validity checks must pass (the
-    engine must close a loop, so it keeps its 80 frames), every number it
-    reports must be finite and positive, and the profiler must give every
-    device-busy time (the engine's, each roofline layer's). The full bench
-    runs alone: `python -m maveric_slam_tpu_torch.bench.<module>`."""
-    from maveric_slam_tpu_torch.bench import headline, profile, suite
+    """The port's roofline profile (`maveric_slam_tpu_torch.bench.profile`)
+    at its smallest rounds: every number it reports finite and positive, and
+    every device-busy time (the net's, each layer's) given by the profiler.
+    The full profile runs alone: `python -m maveric_slam_tpu_torch.bench.profile
+    roofline`."""
+    from maveric_slam_tpu_torch.bench import profile
 
-    cuda = torch.device("cuda")
-    out = {}
-    for name, fn in (
-            ("headline", lambda: headline.run(cuda, rounds=8, batched_rounds=4, chunks=2,
-                                              baseline_iters=2)),
-            ("suite", lambda: suite.run(cuda, multi_rank=False, pairwise_iters=3, rounds=8, ba_calls=2)),
-            ("roofline", lambda: profile.roofline(cuda, iters=20))):
-        t0 = time.perf_counter()
-        out[name] = fn()
-        _log(f"[bench] {name}: {time.perf_counter() - t0:.1f} s")
-    h = out["headline"]
-    _log(f"[bench] headline: {h['value']:.2f} frames/s one stream, {h['aggregate_fps_16_streams']:.2f} / "
-         f"{h['aggregate_fps_32_streams']:.2f} at 16 / 32 streams, {h['chunked_fps_k8']:.2f} in chunks "
-         f"of 8, mfu {h['mfu']:.5f}, vs_baseline {h['vs_baseline']:.3f}; checks {json.dumps(h['checks'])}")
-    for r in out["suite"]["results"]:
-        _log(f"[bench] suite {r['metric']}: {r['value']:.4f} {r['unit']}")
-    for r in out["roofline"]["rows"]:
+    t0 = time.perf_counter()
+    roofline = profile.roofline(torch.device("cuda"), iters=20)
+    _log(f"[bench] roofline: {time.perf_counter() - t0:.1f} s")
+    for r in roofline["rows"]:
         _log(f"[bench] roofline {r['layer']}: {r['ms']:.5f} ms a call, device busy "
              f"{r['device_busy_ms']} ms ({r['kernels']} kernels), {r['tflops']:.3f} TFLOP/s a call, "
              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']})")
-    # The engine's counters are counts, and some work may not have run at all.
-    bad = [(p, v) for p, v in _numbers(out)
-           if not (np.isfinite(v) and (v > 0 or (".counters." in p and v == 0)))]
+    bad = [(p, v) for p, v in _numbers(roofline) if not (np.isfinite(v) and v > 0)]
     _require(not bad, f"bench numbers not finite and positive: {bad}")
-    engine = out["suite"]["results"][2]
-    _log(f"[bench] suite engine: {json.dumps(engine['checks'])}; device busy "
-         f"{engine['slam_device_busy_ms']} ms a frame, loop verification + pose graph "
-         f"{engine['slam_loop_ms']:.3f} ms a frame")
-    busy = [engine["slam_device_busy_ms"], out["roofline"]["net_device_busy_ms"]] + [
-        r["device_busy_ms"] for r in out["roofline"]["rows"]]
+    busy = [roofline["net_device_busy_ms"]] + [r["device_busy_ms"] for r in roofline["rows"]]
     _require(None not in busy, f"a device-busy time the profiler did not give: {busy}")
 
 

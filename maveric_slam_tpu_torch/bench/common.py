@@ -1,4 +1,4 @@
-"""What the bench's modules share: the scene, the inputs, the clocks, the
+"""What the bench's modules share: the scene, the weights, the clocks, the
 card's description and the SuperPoint operation count.
 
 The scene is the 192x640 box-room orbit with 192 frames a turn and
@@ -28,6 +28,7 @@ import torch
 
 from ..config import DEFAULT_CONFIG, CameraConfig, SlamConfig
 from ..data import synthetic
+from ..models import superpoint as sp
 
 H, W = 192, 640
 # NVIDIA H100 SXM (data sheet; dense rates at the 700 W limit).
@@ -35,7 +36,6 @@ HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12  # f32 outside the tensor cores
 INT8_OPS_PER_S = 1979e12  # int8 tensor cores
 PEAKS = {"int8 tensor cores": INT8_OPS_PER_S, "f32 CUDA cores": F32_OPS_PER_S}
-NOISE_SIGMA = 0.02  # content-unique inputs: ~2.5 input quantization steps
 OUT_DIR = os.path.join("build", "bench")  # reports (git-ignored)
 PROFILER_MARKERS = 256  # empty kernels on each side of the work a profiler session counts
 
@@ -89,13 +89,13 @@ def ping_pong(frame: int, images: int) -> int:
     return k if k < images else period - k
 
 
-def unique_frames(frames, seed: int) -> List[np.ndarray]:
-    """Content-unique variants of `frames` (each an array of images):
-    additive noise of NOISE_SIGMA from a generator seeded `seed`, clipped to
-    [0, 1], so that no two inputs are equal and no work can be reused across
-    calls (bench.py:49)."""
-    rng = np.random.default_rng(seed)
-    return [np.clip(f + rng.normal(0, NOISE_SIGMA, f.shape), 0, 1).astype(np.float32) for f in frames]
+def load(device: torch.device):
+    """The weights on `device`; the kernels built before any clock runs."""
+    if device.type == "cuda":
+        from ..ops.kernels import _build
+
+        _build.library()
+    return sp.load_params(device=device)
 
 
 def sync(device: torch.device) -> None:
@@ -209,18 +209,6 @@ def superpoint_flops(h: int = H, w: int = W) -> List[dict]:
              "ops": conv_ops(h // d, w // d, ci, co, k),
              "unit": "int8 tensor cores" if n in ("conv1a", "conv1b") else "f32 CUDA cores"}
             for n, d, ci, co, k in layers]
-
-
-def frame_least_s(h: int = H, w: int = W) -> float:
-    """The least time a frame's convolutions could take: each layer's
-    operations over the peak of the unit it runs on, summed."""
-    return sum(layer["ops"] / PEAKS[layer["unit"]] for layer in superpoint_flops(h, w))
-
-
-def rot_err_deg(R, R_ref) -> np.ndarray:
-    """The angle (deg) of R^T R_ref for rotations with any leading axes."""
-    c = (np.einsum("...ij,...ij->...", R, R_ref) - 1.0) / 2.0
-    return np.degrees(np.arccos(np.clip(c, -1.0, 1.0)))
 
 
 def check(ok: bool, what: str) -> None:

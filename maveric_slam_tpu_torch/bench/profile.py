@@ -23,9 +23,6 @@ profile_roofline.py).
   slope protocol (timing loops of two lengths) worked around its runtime's
   barrier; CUDA events time the launches directly.
 
-tools/profile_modes.py needs no twin: headline.py times the same three
-modes (single stream, chunked, multi-stream).
-
 Prints one JSON line a subcommand.
 """
 
@@ -44,17 +41,18 @@ from ..geometry import epipolar, pnp, ransac
 from ..models import superpoint as sp
 from ..ops import matching
 from ..ops.kernels import stem as stem_kernel
-from . import common, headline
+from . import common
 
 ITERS = 50
 BUSY_CALLS = 20  # a layer's calls under torch.profiler for its device-busy time
+PHASE = 12  # orbit frames between two streams' first frames
 
 
 def _states_and_feats(params, orbit, s, device):
     """Stream states on frames at orbit phases 12 s and each stream's next
     frame's features."""
     cfg = common.config(orbit.h, orbit.w)
-    phase = [headline.STREAMS * k for k in range(s)]
+    phase = [PHASE * k for k in range(s)]
     img0 = torch.from_numpy(np.stack(orbit.frames(phase))).to(device)
     img1 = torch.from_numpy(np.stack(orbit.frames([p + 1 for p in phase]))).to(device)
     states = trk.init_states_batched(params, img0, cfg)
@@ -109,7 +107,7 @@ def tail_stages(cfg, states, feats):
 
 def step(device, h=common.H, w=common.W, iters=ITERS) -> dict:
     device = torch.device(device)
-    params = headline.load(device)
+    params = common.load(device)
     orbit = common.Orbit(h, w)
     cfg, img1, states, feats = _states_and_feats(params, orbit, 1, device)
     img0 = torch.from_numpy(orbit.frames([0])[0]).to(device)
@@ -127,7 +125,7 @@ def step(device, h=common.H, w=common.W, iters=ITERS) -> dict:
 
 def batched(device, h=common.H, w=common.W, streams=(1, 4, 16, 32), iters=20) -> dict:
     device = torch.device(device)
-    params = headline.load(device)
+    params = common.load(device)
     orbit = common.Orbit(h, w)
     rows = []
     for s in streams:
@@ -194,7 +192,7 @@ def net_layers(params, images):
 
 def roofline(device, h=common.H, w=common.W, iters=200) -> dict:
     device = torch.device(device)
-    params = headline.load(device)
+    params = common.load(device)
     orbit = common.Orbit(h, w)
     images = torch.from_numpy(np.stack(orbit.frames([0]))).to(device)
     rows = []

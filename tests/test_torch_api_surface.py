@@ -22,6 +22,7 @@ import inspect
 import pathlib
 
 import pytest
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 JAX_ROOT = ROOT / "maveric_slam_tpu"

@@ -27,6 +27,7 @@ from maveric_slam_tpu_torch.ops import lie as tlie
 from maveric_slam_tpu_torch.ops import linalg as tlinalg
 from test_ba import make_ba_problem
 import test_pose_graph
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 
 def _t(*a):

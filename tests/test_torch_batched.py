@@ -24,7 +24,9 @@ from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.frontend import tracker as ttracker
 from maveric_slam_tpu_torch.geometry import ransac
 from maveric_slam_tpu_torch.models import superpoint as tsp
+from jax_spread import eagerly, relative, within_jax_spread
 from test_torch_tracker import H, W, _config, jax_ransac_noise
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 STREAM_FRAMES = ([0, 1, 2], [48, 49, 50])  # two streams at two phases of the orbit
 
@@ -48,16 +50,6 @@ def _port_states(jstate, batched):
     return ttracker.TrackerState(**fields, generator=gens)
 
 
-def _assert_pose_bar(port, jit, eager, name, spread=None):
-    """|port - jit| within twice JAX's spread |eager - jit| (or `spread`),
-    or 1e-4 where that is larger."""
-    ref = np.asarray(getattr(jit, name))
-    if spread is None:
-        spread = np.abs(np.asarray(getattr(eager, name)) - ref).max()
-    diff = np.abs(getattr(port, name).numpy() - ref).max()
-    assert diff <= max(2.0 * spread, 1e-4 * max(1.0, np.abs(ref).max())), (name, diff, spread)
-
-
 @pytest.fixture(scope="module")
 def params():
     jp = jsp.load_params()
@@ -67,9 +59,9 @@ def params():
 @pytest.fixture(scope="module")
 def batched(params):
     """Per step, from JAX's batched state before it: JAX's batched step
-    jitted and eagerly (the spread), the port's batched step and each
-    stream's single port step, all on JAX's noise; plus the port's own chain
-    of batched states."""
+    jitted, and eagerly as a callable run on first need (the spread), the
+    port's batched step and each stream's single port step, all on JAX's
+    noise; plus the port's own chain of batched states."""
     jp, tp = params
     jcfg, tcfg = _config(jconfig), _config(tconfig)
     seq = np.stack([_frames(ids) for ids in STREAM_FRAMES], axis=1)  # (T, S, H, W)
@@ -84,9 +76,8 @@ def batched(params):
         gmin = torch.from_numpy(np.stack([n[0] for n in noise]))
         glo = torch.from_numpy(np.stack([n[1] for n in noise]))
         jstates, jit = jtracker.track_step_batched(jp, jstates, jnp.asarray(imgs), jcfg)
-        with jax.disable_jit():
-            _, eager = jtracker.track_step_batched(
-                jp, jax.tree_util.tree_map(jnp.asarray, snap), jnp.asarray(imgs), jcfg)
+        eager = eagerly(jtracker.track_step_batched, jp, jax.tree_util.tree_map(jnp.asarray, snap),
+                        jnp.asarray(imgs), jcfg)
         _, port = ttracker.track_step_batched(
             tp, _port_states(snap, True), torch.from_numpy(imgs), tcfg, gmin, glo)
         single = [ttracker.track_step(tp, ttracker._stream(_port_states(snap, True), s),
@@ -129,8 +120,7 @@ def test_batched_step_poses_within_reference_spread(batched):
     other, so R moves by 1.6e-4 on that stream while JAX's jit and eager
     steps agree there and differ by 4.9e-4 on the other stream."""
     for jit, eager, port, _, _ in batched[2]:
-        for name in ("R", "t"):
-            _assert_pose_bar(port, jit, eager, name)
+        within_jax_spread(port, jit, lambda: eager()[1], relative(1e-4), ("R", "t"))
 
 
 def test_batched_equals_single_streams(batched):

@@ -42,6 +42,7 @@ from maveric_slam_tpu_torch.utils import checkpoint
 from test_torch_loopclosure import jax_vocabulary
 from test_torch_slam import (JCFG, N_PARITY, ORBIT_N, SPREAD_R, SPREAD_T, TCFG, _recorded,
                              _word_pairs, jax_engine_noise, orbit, params)  # noqa: F401
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVE_AT = 6  # the checkpoint holds frames 0-6; the resumed run takes 7-12

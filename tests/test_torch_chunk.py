@@ -16,8 +16,10 @@ from maveric_slam_tpu_torch import config as tconfig
 from maveric_slam_tpu_torch.frontend import tracker as ttracker
 from maveric_slam_tpu_torch.geometry import ransac
 from maveric_slam_tpu_torch.models import superpoint as tsp
-from test_torch_batched import _assert_pose_bar, _frames, _noise, _port_states
+from jax_spread import eagerly, relative, within_jax_chain_spread
+from test_torch_batched import _frames, _noise, _port_states
 from test_torch_tracker import _config
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 CHUNK_FRAMES = [0, 1, 2, 3]  # an initial frame and one chunk of K = 3
 
@@ -28,11 +30,20 @@ def params():
     return jp, tsp.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
 
 
+def _jax_chain(jp, state, frames, jcfg):
+    """JAX's track_step over the frames, each from the last's state."""
+    out = []
+    for f in frames:
+        state, step = jtracker.track_step(jp, state, f, jcfg)
+        out.append(step)
+    return out
+
+
 @pytest.fixture(scope="module")
 def chunked(params):
-    """JAX's track_chunk at K = 3 and its eager per-step chain; the port's
-    track_chunk and K chained port track_step calls; all from JAX's initial
-    state, on JAX's noise."""
+    """JAX's track_chunk at K = 3 and its eager per-step chain (a callable
+    run on first need); the port's track_chunk and K chained port
+    track_step calls; all from JAX's initial state, on JAX's noise."""
     jp, tp = params
     jcfg, tcfg = _config(jconfig), _config(tconfig)
     frames = _frames(CHUNK_FRAMES)
@@ -43,12 +54,8 @@ def chunked(params):
         gmin, glo, key = _noise(key, tcfg)
         noise.append((torch.from_numpy(gmin), torch.from_numpy(glo)))
     _, jit = jtracker.track_chunk(jp, state, jnp.asarray(frames[1:]), jcfg)
-    eager = []
-    with jax.disable_jit():
-        st = jax.tree_util.tree_map(jnp.asarray, snap)
-        for f in frames[1:]:
-            st, out = jtracker.track_step(jp, st, jnp.asarray(f), jcfg)
-            eager.append(out)
+    eager = eagerly(_jax_chain, jp, jax.tree_util.tree_map(jnp.asarray, snap),
+                    [jnp.asarray(f) for f in frames[1:]], jcfg)
     _, port = ttracker.track_chunk(
         tp, _port_states(snap, False), torch.from_numpy(frames[1:]), tcfg,
         torch.stack([n[0] for n in noise]), torch.stack([n[1] for n in noise]))
@@ -67,12 +74,9 @@ def test_chunk_vs_jax(chunked):
     jit, eager, port, _ = chunked
     for f in ("valid", "num_matches", "num_inliers", "num_scale_pairs"):
         np.testing.assert_array_equal(getattr(port, f).numpy(), np.asarray(getattr(jit, f)), f)
-    for name in ("R", "t"):
-        chain_spread = 0.0
-        for k, e in enumerate(eager):
-            p, j = (jax.tree_util.tree_map(lambda a: a[k], o) for o in (port, jit))
-            chain_spread += np.abs(np.asarray(getattr(e, name)) - np.asarray(getattr(j, name))).max()
-            _assert_pose_bar(p, j, e, name, spread=chain_spread)
+    p, j = ([jax.tree_util.tree_map(lambda a: a[k], o) for k in range(len(CHUNK_FRAMES) - 1)]
+            for o in (port, jit))
+    within_jax_chain_spread(p, j, eager, relative(1e-4), ("R", "t"))
 
 
 def test_chunk_equals_track_steps(chunked):
@@ -117,7 +121,7 @@ if __name__ == "__main__":
     jp = jsp.load_params()
     tp = tsp.params_from_numpy({k: np.asarray(v) for k, v in jp.items()}, device="cpu")
     jit, eager, port, _ = chunked.__wrapped__((jp, tp))
-    for k, e in enumerate(eager):
+    for k, e in enumerate(eager()):
         d = {n: (np.abs(getattr(port, n)[k].numpy() - np.asarray(getattr(jit, n))[k]).max(),
                  np.abs(np.asarray(getattr(e, n)) - np.asarray(getattr(jit, n))[k]).max())
              for n in ("R", "t")}

@@ -22,6 +22,7 @@ from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops import softmax_topn as st
 from maveric_slam_tpu_torch.ops.kernels import (_build, detector, match, nullspace, qconv, refine_pose, stem,
                                                 svd3)
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 pytestmark = pytest.mark.cuda
 

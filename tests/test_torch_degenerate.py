@@ -33,6 +33,7 @@ from maveric_slam_tpu_torch.geometry import ransac as transac
 from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.ops import softmax_topn as tst
 from test_torch_tracker import H, W, _config, jax_ransac_noise
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 NUM_HYP = 64  # tests/test_degenerate.py's RANSAC cases
 

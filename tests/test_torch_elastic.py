@@ -7,7 +7,7 @@ bitwise (the RANSAC noise comes from the generators, which the checkpoint
 restores); a corrupted state is detected; a permanent fault exhausts the
 restart budget."""
 
-import time
+import threading
 
 import numpy as np
 import pytest
@@ -15,8 +15,10 @@ import pytest
 from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.utils import elastic
 from test_torch_slam import TCFG, orbit
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 KW = dict(ba_every=0, enable_loop_closure=False, device="cpu")
+HANG_DEADLINE_S = 15.0  # a step at 96x320 takes well under a second
 
 
 @pytest.fixture(scope="module")
@@ -55,23 +57,31 @@ def test_crash_recovers_to_identical_trajectory(params, frames, tmp_path, unbrok
 
 
 def test_hang_detected_and_recovered(params, frames, tmp_path, unbroken):
-    """The first engine's step at frame 6 sleeps past the 1 s deadline; the
-    engine recovery builds is honest (a transient wedge)."""
-    fired = []
+    """The first engine's step at frame 6 blocks until the run is over, past
+    the 15 s deadline (tests/test_torch_mesh_elastic.py's: no wall clock
+    under load reaches it); the engine recovery builds is honest (a
+    transient wedge). The wedged step is released and joined at the end."""
+    wedged, release = [], threading.Event()
     runner = elastic.ElasticRunner(params, TCFG, checkpoint_dir=str(tmp_path), checkpoint_every=4,
-                                   step_timeout_s=1.0, **KW)
+                                   step_timeout_s=HANG_DEADLINE_S, **KW)
     process = runner.system.process
 
     def sluggish(image):
-        if runner.system.frame_idx + 1 == 6 and not fired:
-            fired.append(6)
-            time.sleep(3.0)
+        if runner.system.frame_idx + 1 == 6 and not wedged:
+            wedged.append(threading.current_thread())
+            release.wait()
         return process(image)
 
     runner.system.process = sluggish
-    system = runner.run(frames)
+    try:
+        system = runner.run(frames)
+    finally:
+        release.set()
+        for t in wedged:
+            t.join(HANG_DEADLINE_S)
+    assert wedged and not any(t.is_alive() for t in wedged)
     assert runner.restarts == 1
-    assert "frame 6" in runner.failures[0] and "exceeded 1.0s" in runner.failures[0]
+    assert "frame 6" in runner.failures[0] and f"exceeded {HANG_DEADLINE_S}s" in runner.failures[0]
     np.testing.assert_array_equal(system.trajectory(), unbroken)
 
 

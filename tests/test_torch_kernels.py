@@ -24,6 +24,7 @@ from maveric_slam_tpu_torch.ops import softmax_topn as tst
 from maveric_slam_tpu_torch.ops.kernels import detector, match, nullspace, svd3
 from test_torch_cuda import (detector_edge_cases, detector_kernel_emulation, match_edge_cases,
                              svd3_edge_cases)
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 REFCACHE = os.path.join(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__))),

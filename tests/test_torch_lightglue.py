@@ -27,6 +27,7 @@ from maveric_slam_tpu_torch.geometry import ransac
 from maveric_slam_tpu_torch.models import lightglue as lg
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 SIZE = (320, 96)  # (W, H)
 HEADS = 4

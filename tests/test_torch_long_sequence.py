@@ -24,6 +24,7 @@ from maveric_slam_tpu.loopclosure import vocab as jvocab
 from maveric_slam_tpu_torch import slam as tslam
 from test_torch_loopclosure import jax_vocabulary
 from test_torch_slam import JCFG, TCFG, jax_engine_noise, orbit, params  # noqa: F401 (fixture)
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 RING, NODES = 6, 8
 # Keyframes come every max_interval = 4 frames, so the ring first wraps at

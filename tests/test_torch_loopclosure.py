@@ -21,6 +21,7 @@ from maveric_slam_tpu.loopclosure import vocab as jvocab
 from maveric_slam_tpu.ops import softmax_topn as jst
 from maveric_slam_tpu_torch.loopclosure import lcd as tlcd
 from maveric_slam_tpu_torch.loopclosure import vocab as tvocab
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 REFCACHE = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                         "maveric_slam_tpu", "data", "_refcache")

@@ -15,6 +15,7 @@ from maveric_slam_tpu.utils import evaluation as jeval
 from maveric_slam_tpu_torch import tracks as ttracks
 from maveric_slam_tpu_torch.mapping import feature_pool as tpool
 from maveric_slam_tpu_torch.utils import evaluation as teval
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 FIELDS = ("first_seen", "last_seen", "num_sightings")
 

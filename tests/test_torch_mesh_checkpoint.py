@@ -37,7 +37,6 @@ import time
 
 import numpy as np
 import pytest
-import torch
 
 from maveric_slam_tpu import slam as jslam
 from maveric_slam_tpu.loopclosure import vocab as jvocab
@@ -52,6 +51,7 @@ from test_torch_loopclosure import jax_vocabulary
 from test_torch_multihost import _run_ranks
 from test_torch_slam import (JCFG, N_PARITY, ORBIT_N, SPREAD_R, SPREAD_T, TCFG, _recorded,
                              _word_pairs, jax_engine_noise, orbit)
+import torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SAVE_AT = 6  # the checkpoints hold frames 0-6; the resumed runs take 7-12
@@ -67,12 +67,7 @@ def mesh_run(n, **kw):
 
 def single_run(**kw):
     """`worker.engine` alone in this process, on one thread as the ranks."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        return worker.engine(TCFG, **kw)
-    finally:
-        torch.set_num_threads(threads)
+    return worker.engine(TCFG, **kw)
 
 
 def saved_fingerprint(path):
@@ -175,12 +170,7 @@ def test_restore_refuses_a_ring_that_does_not_divide(frames, tmp_path):
     """(c) A single engine with a 4095-frame ring saves; a 2-rank mesh
     (whose own ring is 4096) cannot take its rows."""
     odd = dataclasses.replace(TCFG, loop=dataclasses.replace(TCFG.loop, max_db_frames=4095))
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        worker.engine(odd, frames[:2], save_at=1, save_dir=str(tmp_path))
-    finally:
-        torch.set_num_threads(threads)
+    worker.engine(odd, frames[:2], save_at=1, save_dir=str(tmp_path))
     with pytest.raises(RuntimeError, match="ValueError: the checkpoint's 4095 LCD ring frames do "
                                            "not divide over a mesh of 2 ranks"):
         mesh_run(2, frames=frames[:2], restore_dir=str(tmp_path))
@@ -247,7 +237,7 @@ class _View:
 def _track(image_dir, *args):
     """The track CLI over 2 ranks on the CPU, in a process group of its own
     (so that a SIGKILL takes the ranks with it, as a preemption would)."""
-    env = dict(os.environ, PYTHONPATH=REPO, OMP_NUM_THREADS="2")  # one thread a rank
+    env = torch_threads.subprocess_env(PYTHONPATH=REPO)
     return subprocess.Popen(
         [sys.executable, "-m", "maveric_slam_tpu_torch.cli.track", str(image_dir), "--device", "cpu",
          "--mesh", "2", *args], env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,

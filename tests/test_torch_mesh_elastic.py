@@ -17,6 +17,7 @@ import pytest
 from maveric_slam_tpu_torch.utils import elastic
 import torch_mesh_worker as worker
 from test_torch_slam import TCFG, orbit
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 RANKS = 2
 HANG_DEADLINE_S = 15.0  # a step at 96x320 takes well under a second on one thread

@@ -22,7 +22,6 @@ The ranks import neither JAX nor the JAX package (tests/torch_mesh_worker.py).
 
 import numpy as np
 import pytest
-import torch
 
 from maveric_slam_tpu import slam as jslam
 from maveric_slam_tpu.loopclosure import vocab as jvocab
@@ -33,6 +32,7 @@ import torch_mesh_worker as worker
 from test_torch_loopclosure import jax_vocabulary
 from test_torch_slam import (JCFG, N_PARITY, SPREAD_R, SPREAD_T, TCFG, _recorded, _word_pairs,
                              jax_engine_noise, orbit)
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 RANKS = 4
 SPAWN_TIMEOUT_S = 300
@@ -50,12 +50,7 @@ def runs():
     """The port alone (one thread, as the ranks), the port's mesh engine on
     4 ranks and on 1, and the JAX mesh engine on 4 devices."""
     frames, steps, verifications = scene()
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        single = worker.engine(TCFG, frames, steps, verifications)
-    finally:
-        torch.set_num_threads(threads)
+    single = worker.engine(TCFG, frames, steps, verifications)
     mesh = {n: tmesh.spawn(worker.mesh_engine, n, args=(TCFG, frames, steps, verifications),
                            device="cpu", threads=1, timeout_s=SPAWN_TIMEOUT_S)
             for n in (RANKS, 1)}

@@ -30,6 +30,7 @@ from maveric_slam_tpu_torch.config import DEFAULT_CONFIG
 from maveric_slam_tpu_torch.data import kitti, synthetic
 from maveric_slam_tpu_torch.parallel import mesh as tmesh
 import torch_mesh_worker as worker
+import torch_threads
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WALL_S = 300
@@ -46,9 +47,9 @@ def _run_ranks(cmd, world, timeout=WALL_S):
     port = _free_port()
     procs = []
     for rank in range(world):
-        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank),
-                   WORLD_SIZE=str(world), LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
-                   PYTHONPATH=REPO, OMP_NUM_THREADS="2")
+        env = torch_threads.subprocess_env(
+            MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(rank), WORLD_SIZE=str(world),
+            LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world), PYTHONPATH=REPO)
         procs.append(subprocess.Popen(cmd, env=env, cwd=REPO, stdout=subprocess.PIPE,
                                       stderr=subprocess.STDOUT, text=True))
     try:

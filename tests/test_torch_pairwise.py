@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from golden_nms import nms_fast_numpy
+from jax_spread import eagerly, within_jax_spread
 from maveric_slam_tpu import config as jconfig
 from maveric_slam_tpu.cli import extract as jextract_cli
 from maveric_slam_tpu.frontend import extractor as jextractor
@@ -40,6 +41,7 @@ from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.ops import matching as tmatching
 from maveric_slam_tpu_torch.ops import nms as tnms
 from maveric_slam_tpu_torch.ops import softmax_topn as tst
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 H, W = 96, 320
 PAIRS = [(0, 1), (0, 4)]  # consecutive, and a few frames apart
@@ -249,20 +251,15 @@ def test_pairwise_pose_with_jax_noise(frames, params, a, b):
     jp, tp = params
     key = jax.random.PRNGKey(7)
     want = jpairwise.pairwise_pose(jp, jnp.asarray(frames[a]), jnp.asarray(frames[b]), JCFG, key=key)
-    with jax.disable_jit():
-        eager = jpairwise.pairwise_pose(jp, jnp.asarray(frames[a]), jnp.asarray(frames[b]), JCFG,
-                                        key=key)
     n_hyp = TCFG.ransac.num_hypotheses
     gmin, glo = jax_pairwise_noise(key, n_hyp, max(n_hyp // 4, 16), TCFG.frontend.max_keypoints)
     got = tpairwise.pairwise_pose(tp, torch.from_numpy(frames[a]), torch.from_numpy(frames[b]),
                                   TCFG, torch.from_numpy(gmin), torch.from_numpy(glo))
     assert int(got.num_matches) == int(want.num_matches) > 30
     assert int(got.num_inliers) == int(want.num_inliers) > 30
-    for name in ("R", "t", "E"):
-        ref = np.asarray(getattr(want, name))
-        spread = np.abs(np.asarray(getattr(eager, name)) - ref).max()
-        diff = np.abs(getattr(got, name).numpy() - ref).max()
-        assert diff <= max(2.0 * spread, 1e-4), (name, diff, spread)
+    eager = eagerly(jpairwise.pairwise_pose, jp, jnp.asarray(frames[a]), jnp.asarray(frames[b]), JCFG,
+                    key=key)
+    within_jax_spread(got, want, eager, 1e-4, ("R", "t", "E"))
 
 
 def test_pairwise_pose_seeded_generator(frames, params):

@@ -47,6 +47,7 @@ import torch_mesh_worker as worker
 from test_ba import make_ba_problem, reproj_rmse
 from test_torch_batched import _frames, _noise
 from test_torch_tracker import _config
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 SPAWN_TIMEOUT_S = 240  # the ranks of one world size, all cases
 # name: (seed, landmarks, iterations, pixel noise, mesh shape, axes), as in tests/test_parallel.py
@@ -254,14 +255,9 @@ def unsharded_step(stream_inputs):
     imgs0, imgs1, gmin, glo, _ = stream_inputs
     tcfg = _config(tconfig)
     params = tsp.load_params(device="cpu")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        states = ttracker.init_states_batched(params, torch.from_numpy(imgs0), tcfg)
-        _, step = ttracker.track_step_batched(params, states, torch.from_numpy(imgs1), tcfg,
-                                              torch.from_numpy(gmin), torch.from_numpy(glo))
-    finally:
-        torch.set_num_threads(threads)
+    states = ttracker.init_states_batched(params, torch.from_numpy(imgs0), tcfg)
+    _, step = ttracker.track_step_batched(params, states, torch.from_numpy(imgs1), tcfg,
+                                          torch.from_numpy(gmin), torch.from_numpy(glo))
     return step
 
 

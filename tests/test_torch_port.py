@@ -14,6 +14,7 @@ import torch
 from maveric_slam_tpu import config as jax_config
 from maveric_slam_tpu_torch import config as torch_config
 from maveric_slam_tpu_torch.ops.backend import resolve_device
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -25,6 +25,7 @@ from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.frontend import tracker as trk
 from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.utils import profiling
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 H, W, ORBIT_N = 96, 320, 96
 N_ORBIT, N_UNTRACED = 125, 100

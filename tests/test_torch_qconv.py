@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from maveric_slam_tpu_torch.models import superpoint as sp
 from maveric_slam_tpu_torch.ops.kernels import qconv
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 NAMES = [name for name, _, _, _ in sp._AFTER_STEM]
 INPUT_SCALE = {name: src for name, src, _, _ in sp._AFTER_STEM}

@@ -11,6 +11,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from jax_spread import eagerly, relative, within_jax_spread
 from pnp_problems import pnp_problem
 
 from maveric_slam_tpu.geometry import pnp as jpnp
@@ -20,20 +21,17 @@ from maveric_slam_tpu_torch.ops import kernels
 from maveric_slam_tpu_torch.ops.kernels import _build
 from maveric_slam_tpu_torch.ops.kernels import refine_pose as rp
 from slam_bench import yardstick
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 HUBER, DAMPING = DEFAULT_CONFIG.ba.huber_delta, DEFAULT_CONFIG.ba.lm_damping
 SOURCE = Path(_build.CSRC) / "refine_pose.cu"
 
 
-def _jax_refine(args, jit):
-    """The JAX package's refine_pose vmapped over the poses, jitted or eager."""
+def _jax_refine(args):
+    """The JAX package's refine_pose vmapped over the poses, and its inputs."""
     K, *rest = (a.numpy() for a in args)
-    fn = jax.vmap(lambda R0, t0, X, z, m: jpnp.refine_pose(
-        K, R0, t0, X, z, m, huber_delta=HUBER, damping=DAMPING))
-    if jit:
-        return fn(*rest)
-    with jax.disable_jit():
-        return fn(*rest)
+    return jax.vmap(lambda R0, t0, X, z, m: jpnp.refine_pose(
+        K, R0, t0, X, z, m, huber_delta=HUBER, damping=DAMPING)), rest
 
 
 def test_plain_matches_jax():
@@ -43,13 +41,10 @@ def test_plain_matches_jax():
     value's scale where that is larger (tests/test_torch_batched.py's rule);
     num_used exactly."""
     args = pnp_problem(4, 100, 0)
-    jit, eager = _jax_refine(args, True), _jax_refine(args, False)
+    fn, inputs = _jax_refine(args)
+    jit = fn(*inputs)
     port = pnp.refine_pose(*args, huber_delta=HUBER, damping=DAMPING)
-    for name in ("R", "t", "cost"):
-        ref = np.asarray(getattr(jit, name))
-        spread = np.abs(np.asarray(getattr(eager, name)) - ref).max()
-        diff = np.abs(getattr(port, name).numpy() - ref).max()
-        assert diff <= max(2.0 * spread, 1e-4 * max(1.0, np.abs(ref).max())), (name, diff, spread)
+    within_jax_spread(port, jit, eagerly(fn, *inputs), relative(1e-4), ("R", "t", "cost"))
     assert port.num_used.dtype == torch.int32
     np.testing.assert_array_equal(port.num_used.numpy(), np.asarray(jit.num_used))
     # The refinement converges: the cost falls well below the initial pose's.

@@ -20,6 +20,7 @@ from maveric_slam_tpu import runtime as jruntime
 from maveric_slam_tpu_torch import runtime as truntime
 from maveric_slam_tpu_torch.runtime import pool as tpool
 from test_feature_pool import synthetic_frames
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 JAX_TREE = Path(__file__).resolve().parents[1] / "maveric_slam_tpu"
 # What the JAX package's own build (its runtime/native/Makefile) may leave in

@@ -40,7 +40,9 @@ from maveric_slam_tpu_torch.cli import track as track_cli
 from maveric_slam_tpu_torch.data import kitti, synthetic
 from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.utils import evaluation, trajectory
+from jax_spread import eagerly, within_jax_spread
 from test_torch_loopclosure import jax_vocabulary
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 H, W, ORBIT_N = 96, 320, 96
 N_PARITY = 13  # part (a): frames 0-12, BA windows at frames 4, 8 and 12
@@ -207,12 +209,9 @@ def test_engine_window_ba_within_reference_spread(engines):
     assert len(windows) == 3
     for w, (flat, want) in enumerate(windows):
         got = tslam._window_ba_packed(torch.from_numpy(flat.copy()), TCFG, 10, 2).numpy()
-        with jax.disable_jit():
-            eager = np.asarray(jslam._window_ba_packed.__wrapped__(jnp.asarray(flat), JCFG, 10, 2))
-        for name, sl in (("R", slice(0, 72)), ("t", slice(72, 96))):
-            spread = np.abs(eager[sl] - want[sl]).max()
-            diff = np.abs(got[sl] - want[sl]).max()
-            assert diff <= max(2 * spread, 1e-4), (w, name, diff, spread)
+        eager = eagerly(jslam._window_ba_packed.__wrapped__, jnp.asarray(flat), JCFG, 10, 2)
+        within_jax_spread(got, want, eager, 1e-4, {f"window {w} R": slice(0, 72),
+                                                   f"window {w} t": slice(72, 96)})
 
 
 def _loop_entry(jp, frame):
@@ -236,15 +235,12 @@ def test_loop_verification_matches_jax(params, pair):
     flat = np.concatenate([a.ravel() for f in pair for a in _loop_entry(jp, f)])
     _, sub = jax.random.split(jax.random.PRNGKey(0))
     want = np.asarray(jslam._verify_loop_device(jnp.asarray(flat), sub, JCFG, 100))
-    with jax.disable_jit():
-        eager = np.asarray(jslam._verify_loop_device.__wrapped__(jnp.asarray(flat), sub, JCFG, 100))
     got = tslam._verify_loop_device(torch.from_numpy(flat), TCFG, 100,
                                     *(torch.from_numpy(g) for g in ransac_noise(sub))).numpy()
     assert got[0] == want[0] >= 30
     np.testing.assert_array_equal(got[14:114], want[14:114])
-    for name, sl in (("R", slice(1, 10)), ("t", slice(10, 13))):
-        spread = np.abs(eager[sl] - want[sl]).max()
-        assert np.abs(got[sl] - want[sl]).max() <= max(2 * spread, 1e-4), name
+    eager = eagerly(jslam._verify_loop_device.__wrapped__, jnp.asarray(flat), sub, JCFG, 100)
+    within_jax_spread(got, want, eager, 1e-4, {"R": slice(1, 10), "t": slice(10, 13)})
     assert abs(got[13] - want[13]) <= 1e-5
 
 

@@ -16,6 +16,7 @@ from maveric_slam_tpu.ops import pallas_kernels
 from maveric_slam_tpu_torch.data import synthetic
 from maveric_slam_tpu_torch.models import superpoint as tsp
 from maveric_slam_tpu_torch.ops.kernels import stem
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 H, W = 96, 320
 K = np.array([[400.0, 0, 160.0], [0, 400.0, 48.0], [0, 0, 1]], np.float32)

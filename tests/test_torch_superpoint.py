@@ -9,6 +9,7 @@ from maveric_slam_tpu.data import synthetic as jsynthetic
 from maveric_slam_tpu.models import superpoint as jsp
 from maveric_slam_tpu_torch.data import synthetic as tsynthetic
 from maveric_slam_tpu_torch.models import superpoint as tsp
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 H, W = 96, 320
 K = np.array([[400.0, 0, 160.0], [0, 400.0, 48.0], [0, 0, 1]], np.float32)

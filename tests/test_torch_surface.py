@@ -55,8 +55,10 @@ from maveric_slam_tpu_torch.ops import lie as tlie
 from maveric_slam_tpu_torch.ops import linalg as tlinalg
 from maveric_slam_tpu_torch.ops import softmax_topn as tst
 from maveric_slam_tpu_torch.ops import svd3 as tsvd3
+from jax_spread import assert_allclose_within_spread, eagerly, within_column_spread
 from test_geometry import make_scene
 from test_torch_slam import TCFG, orbit
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 
 def j(fn, *args, **kw):
@@ -71,12 +73,11 @@ def t(fn, *args, **kw):
     return tuple(o.numpy() for o in out) if isinstance(out, tuple) else out.numpy()
 
 
-def jax_spread(fn, *args, **kw):
+def jit_eager_spread(fn, *args, **kw):
     """JAX's own spread on these inputs: the largest gap between the
     function jitted and with jit disabled (0 where both round alike)."""
     a = j(jax.jit(lambda *x: fn(*x, **kw)), *args)
-    with jax.disable_jit():
-        b = j(fn, *args, **kw)
+    b = eagerly(j, fn, *args, **kw)()
     a, b = (x if isinstance(x, tuple) else (x,) for x in (a, b))
     return max(float(np.abs(x - y).max()) for x, y in zip(a, b))
 
@@ -116,8 +117,8 @@ def test_lie_elementwise(name):
     fn = getattr(jlie, name)
     want = j(fn, *args, **kw)
     cancel = 1e-6 * float(np.abs(want).max()) if name == "se3_apply" else 0.0
-    np.testing.assert_allclose(t(getattr(tlie, name), *args, **kw), want,
-                               rtol=1e-6, atol=max(2 * jax_spread(fn, *args, **kw), cancel))
+    assert_allclose_within_spread(t(getattr(tlie, name), *args, **kw), want,
+                                  lambda: jit_eager_spread(fn, *args, **kw), rtol=1e-6, floor=cancel)
 
 
 def _omegas():
@@ -174,17 +175,16 @@ def _eigh_cases():
             "random 9x9": _psd(rng, (8,), 9, 0.0)}
 
 
-def _column_bars(fn, A, **kw):
-    """Per eigenvector (the last axis of `fn`'s vectors): 1e-4, or twice
-    JAX's own jit/eager spread of that vector where larger. The 8-point
-    matrices' small eigenvalues lie within f32 rounding of each other, so
-    JAX's two modes already disagree there (ROADMAP Faults (q))."""
+def _column_spread(fn, A, **kw):
+    """Per eigenvector (the last axis of `fn`'s vectors), JAX's own jit/eager
+    spread of that vector; the bar is 1e-4, or twice it where larger. The
+    8-point matrices' small eigenvalues lie within f32 rounding of each
+    other, so JAX's two modes already disagree there (ROADMAP Faults (q))."""
     a = j(jax.jit(lambda x: fn(x, **kw)), A)
-    with jax.disable_jit():
-        b = j(fn, A, **kw)
+    b = eagerly(j, fn, A, **kw)()
     a, b = (x[1] if isinstance(x, tuple) else x[..., None] for x in (a, b))
     s = np.sign(np.sum(a * b, axis=-2, keepdims=True))
-    return np.maximum(1e-4, 2 * np.abs(a * s - b).max(axis=(0, 1)))
+    return np.abs(a * s - b).max(axis=(0, 1))
 
 
 @pytest.mark.parametrize("case", list(_eigh_cases()))
@@ -196,7 +196,7 @@ def test_jacobi_eigh(case):
     assert (np.abs(w_t - w_j).max(-1) <= 1e-5 * scale).all(), np.abs(w_t - w_j).max()
     s = np.sign(np.sum(V_t * V_j, axis=-2, keepdims=True))
     gap = np.abs(V_t * s - V_j).max(axis=(0, 1))
-    assert (gap <= _column_bars(jlinalg.jacobi_eigh, A)).all(), gap
+    within_column_spread(gap, lambda: _column_spread(jlinalg.jacobi_eigh, A), 1e-4)
 
 
 @pytest.mark.parametrize("refine_steps", [0, 2])
@@ -205,8 +205,8 @@ def test_smallest_eigvec_sym(refine_steps):
         x_t = t(tlinalg.smallest_eigvec_sym, A, refine_steps=refine_steps)
         x_j = j(jlinalg.smallest_eigvec_sym, A, refine_steps=refine_steps)
         s = np.sign(np.sum(x_t * x_j, axis=-1, keepdims=True))
-        bar = _column_bars(jlinalg.smallest_eigvec_sym, A, refine_steps=refine_steps)
-        assert np.abs(x_t * s - x_j).max() <= bar[0], (case, np.abs(x_t * s - x_j).max(), bar)
+        within_column_spread(np.abs(x_t * s - x_j).max(), lambda: _column_spread(
+            jlinalg.smallest_eigvec_sym, A, refine_steps=refine_steps)[:1], 1e-4)
 
 
 # ---------------------------------------------------------------------- #

@@ -27,6 +27,7 @@ from scipy.spatial.transform import Rotation
 
 from maveric_slam_tpu.geometry import epipolar as jepi
 from maveric_slam_tpu_torch.geometry import epipolar as tepi
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 
 @pytest.fixture(scope="module")

@@ -18,6 +18,7 @@ from maveric_slam_tpu.utils import visualization as jviz
 from maveric_slam_tpu_torch.tracks import Observation
 from maveric_slam_tpu_torch.utils import profiling
 from maveric_slam_tpu_torch.utils import visualization as tviz
+import torch_threads  # noqa: F401  (the tests' one torch thread policy)
 
 
 def test_timer_counts_means_and_report_order():
